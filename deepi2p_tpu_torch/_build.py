@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-All of ``csrc/*.cu`` goes through ONE ``nvcc`` call into a shared library
+Every ``csrc/*.cu`` is compiled by its own ``nvcc -c``, all started
+together, and one ``nvcc -shared`` links the objects into a shared library
 with a plain C interface, bound with :mod:`ctypes`.  No source includes
 PyTorch's headers, so the build takes seconds, not minutes.
 
@@ -26,6 +27,7 @@ import os
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import List
 
@@ -34,7 +36,7 @@ SRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
     # no multiply-add contraction: the kernels then round every product
     # and sum as the plain PyTorch versions do, which is what lets the
     # chip check hold them to those versions tightly
@@ -53,6 +55,11 @@ SIGNATURES = {
     # B, N, I, max_iter, H1, W1, lb0, lb1, lb2, ub0, ub1, ub2, stream
     "lm_solve_p4_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                         _F, _F, _F, _F, _F, _F, _F, _F, _P],
+    # the same for the 6-DoF mode (theta0 and theta_out (B, I, 6))
+    "lm_solve_p6_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                        _F, _F, _F, _F, _F, _F, _F, _F, _P],
+    # q, db, d2, idx, S (query sets), N, M, D, Q (sets per database), stream
+    "nn1_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -84,9 +91,34 @@ def find_nvcc() -> str:
         "is needed to build the port's kernels")
 
 
-def nvcc_command(nvcc: str, srcs, out: Path) -> List[str]:
-    """The single compile-and-link command for all kernel sources."""
-    return [nvcc, *NVCC_FLAGS, "-o", str(out), *(str(p) for p in srcs)]
+def nvcc_commands(nvcc: str, srcs, out: Path):
+    """One compile command per source (to an object beside ``out``) and
+    the command that links the objects into ``out``."""
+    objs = [out.with_name(f"{out.name}.{p.stem}.o") for p in srcs]
+    compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(p)]
+                for p, o in zip(srcs, objs)]
+    link = [nvcc, "-shared", "-o", str(out), *(str(o) for o in objs)]
+    return compiles, link
+
+
+def _run_all(cmds, verbose: bool) -> None:
+    """Run the commands at once and wait for all; raise if one failed (a
+    command past :data:`BUILD_TIMEOUT_S` is killed and raises)."""
+    def run(cmd):
+        return subprocess.run(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True,
+                              timeout=BUILD_TIMEOUT_S)
+
+    with ThreadPoolExecutor(len(cmds)) as pool:
+        done = list(pool.map(run, cmds))
+    for cmd, res in zip(cmds, done):
+        if verbose or res.returncode != 0:
+            print(" ".join(cmd), flush=True)
+            print(res.stdout, flush=True)
+    failed = [(c[-1], r.returncode) for c, r in zip(cmds, done)
+              if r.returncode != 0]
+    if failed:
+        raise RuntimeError(f"nvcc failed: {failed}")
 
 
 def build(verbose: bool = False) -> Path:
@@ -97,16 +129,17 @@ def build(verbose: bool = False) -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.tmp{os.getpid()}")
-    cmd = nvcc_command(find_nvcc(), srcs, tmp)
+    compiles, link = nvcc_commands(find_nvcc(), srcs, tmp)
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True,
-                          timeout=BUILD_TIMEOUT_S)
-    if verbose or proc.returncode != 0:
-        print(" ".join(cmd), flush=True)
-        print(proc.stdout + proc.stderr, flush=True)
-    if proc.returncode != 0:
+    try:
+        _run_all(compiles, verbose)
+        _run_all([link], verbose)
+    except BaseException:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed with code {proc.returncode}")
+        raise
+    finally:
+        for cmd in compiles:
+            Path(cmd[cmd.index("-o") + 1]).unlink(missing_ok=True)
     os.replace(tmp, out)
     if verbose:
         print(f"built {out.name} in {time.perf_counter() - t0:.1f} s",

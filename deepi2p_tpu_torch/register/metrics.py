@@ -33,6 +33,17 @@ def pose_diff(P_pred: torch.Tensor, P_gt: torch.Tensor):
     return rte, rre * (180.0 / math.pi)
 
 
+def pose_diff_np(P_pred: np.ndarray, P_gt: np.ndarray):
+    """(RTE, RRE in degrees) of one pose pair on the host, through scipy
+    (the JAX package's ``pose_diff_np``; the harness's metric)."""
+    from scipy.spatial.transform import Rotation
+    D = np.linalg.inv(P_pred) @ P_gt
+    rte = float(np.linalg.norm(D[:3, 3]))
+    rre = float(np.sum(np.abs(
+        Rotation.from_matrix(D[:3, :3]).as_euler("xzy", degrees=True))))
+    return rte, rre
+
+
 def registration_summary(rte, rre, rte_thresh: float = 2.0,
                          rre_thresh: float = 5.0) -> Dict[str, float]:
     """Mean/std errors and success rate

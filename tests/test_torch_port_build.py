@@ -15,18 +15,28 @@ REPO = Path(__file__).resolve().parents[1]
 def test_one_nvcc_command_for_all_sources():
     srcs = _build.sources()
     names = {p.name for p in srcs}
-    assert {"knn.cu", "frustum_lm.cu"} <= names
+    assert {"knn.cu", "frustum_lm.cu", "nn1.cu"} <= names
     assert names == {p.name for p in _build.SRC_DIR.glob("*.cu")}
     out = _build.library_path(srcs)
-    cmd = _build.nvcc_command("nvcc", srcs, out)
-    assert cmd[0] == "nvcc"
-    i = cmd.index("-gencode")
-    assert cmd[i + 1] == "arch=compute_90a,code=sm_90a"
-    for flag in ("-shared", "-std=c++17", "-O3", "-fPIC"):
-        assert flag in cmd
-    assert cmd[cmd.index("-Xptxas") + 1] == "-v"
-    assert cmd[cmd.index("-o") + 1] == str(out)
-    assert [c for c in cmd if c.endswith(".cu")] == [str(p) for p in srcs]
+    # one compile command per source, started together, then one link
+    # command that puts every object into the one library
+    compiles, link = _build.nvcc_commands("nvcc", srcs, out)
+    assert len(compiles) == len(srcs)
+    objs = []
+    for src, cmd in zip(srcs, compiles):
+        assert cmd[0] == "nvcc" and cmd[-1] == str(src)
+        i = cmd.index("-gencode")
+        assert cmd[i + 1] == "arch=compute_90a,code=sm_90a"
+        for flag in ("-c", "-std=c++17", "-O3", "-fPIC", "-fmad=false"):
+            assert flag in cmd
+        assert cmd[cmd.index("-Xptxas") + 1] == "-v"
+        assert [c for c in cmd if c.endswith(".cu")] == [str(src)]
+        objs.append(cmd[cmd.index("-o") + 1])
+    assert len(set(objs)) == len(srcs)
+    assert all(Path(o).parent == out.parent for o in objs)
+    assert link[0] == "nvcc" and "-shared" in link
+    assert link[link.index("-o") + 1] == str(out)
+    assert link[link.index("-o") + 2:] == objs
 
 
 def test_sources_use_no_torch_headers():

@@ -20,7 +20,8 @@ from deepi2p_tpu_torch.register import metrics as tm
 from test_torch_port_lm import H, K_NP, T_LB, T_UB, W, problem
 
 
-def jax_halving_solve(pc, pred, K, theta0, *, max_iter, solver_stride):
+def jax_halving_solve(pc, pred, K, theta0, *, max_iter, solver_stride,
+                      is_2d=True):
     """frustum.py's Pallas branch, with lm_solve_pallas in interpret mode."""
     _, valid = jax.vmap(jf.initial_guess)(pc, pred)
     s = solver_stride
@@ -42,7 +43,7 @@ def jax_halving_solve(pc, pred, K, theta0, *, max_iter, solver_stride):
     best = jnp.argmin(costs, axis=1)
     th = jnp.take_along_axis(thetas, best[:, None, None], axis=1)[:, 0]
     cost = jnp.take_along_axis(costs, best[:, None], axis=1)[:, 0]
-    P = jax.vmap(lambda t: jf.theta_to_pose(t, True))(th)
+    P = jax.vmap(lambda t: jf.theta_to_pose(t, is_2d))(th)
     has = jnp.sum(pred, axis=1) > 0
     P = jnp.where(has[:, None, None], P, jnp.eye(4))
     return P, jnp.where(has, cost, 1e4)

@@ -32,12 +32,29 @@ import chip_smoke
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
 assert not leaked, leaked
 assert len(names) >= 15, names
+for new in ("ops.projection", "register.icp", "eval.dump", "eval.depth",
+            "eval.harness", "eval.cli", "data.nuscenes"):
+    assert "deepi2p_tpu_torch." + new in names, new
 
+import tempfile
+import numpy as np
+import torch
 from deepi2p_tpu_torch import config
 from deepi2p_tpu_torch.data import batch_to_torch, synthetic_batch
+from deepi2p_tpu_torch.eval.dump import save_sample_dump
+from deepi2p_tpu_torch.eval.harness import evaluate_registration
 from deepi2p_tpu_torch.models import build_detector
+from deepi2p_tpu_torch.register.icp import icp_batch
+dump_dir = tempfile.mkdtemp()
+z = np.zeros(8)
+save_sample_dump(dump_dir, "000000_00", pc=np.ones((8, 3)), coarse_pred=z,
+                 coarse_label=z, fine_pred=z, fine_label=z, K=np.eye(3),
+                 P=np.eye(4)[:3])
+pts = np.ones((1, 8, 3), np.float32)
 for call in (lambda: build_detector(config.tiny()),
-             lambda: batch_to_torch(synthetic_batch(config.tiny()))):
+             lambda: batch_to_torch(synthetic_batch(config.tiny())),
+             lambda: evaluate_registration(dump_dir, H=8, W=8),
+             lambda: icp_batch(pts, pts, torch.Generator())):
     try:
         call()
     except RuntimeError as e:

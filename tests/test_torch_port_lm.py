@@ -86,12 +86,20 @@ def test_lm_max_iter_zero_is_clipped_init():
 
 
 def test_lm_p6_is_not_ported():
+    """The 6-DoF mode (P=6) is ported now (its parity tests are in
+    test_torch_port_lm6.py): on the CPU it runs the plain version and
+    keeps the shapes; any other P is refused."""
     rng = np.random.default_rng(0)
     pts, lab, val, K, _ = problem(rng, B=1, N=1024, I=8)
     th6 = torch.zeros(1, 8, 6)
-    args = [torch.from_numpy(a) for a in (pts, lab, val, K)] + [th6]
-    with pytest.raises(NotImplementedError, match="P=6"):
-        lm_solve(*args, T_LB, T_UB, H=H, W=W, max_iter=1)
+    th6[..., 5] = 2.0
+    args = [torch.from_numpy(a) for a in (pts, lab, val, K)]
+    theta, cost = lm_solve(*args, th6, T_LB, T_UB, H=H, W=W, max_iter=1)
+    assert tuple(theta.shape) == (1, 8, 6) and tuple(cost.shape) == (1, 8)
+    assert bool(torch.isfinite(cost).all())
+    with pytest.raises(ValueError, match="P=6"):
+        lm_solve(*args, torch.zeros(1, 8, 5), T_LB, T_UB, H=H, W=W,
+                 max_iter=1)
 
 
 def test_lm_cuda_refuses_cpu_tensors():
