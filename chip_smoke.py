@@ -17,13 +17,23 @@ announced as ``phase=<name> start|done t=<seconds>``:
 4. ``model``: ``config.oxford(batch_size=32)`` with seeded weights, bf16
    as the config says; one forward gives the labels the solve sees.
 5. ``knn``: the kNN kernel against its plain version at the four shapes of
-   the forward: indices equal, distances within 1e-5 relative; times of
-   the kernel, the plain version and ``torch.cdist`` + ``torch.topk``.
-6. ``lm``: the LM kernel against its plain version at the solve's probe
-   and refine shapes, on the model's labels and on those of the true
-   pose: the same NaN pattern, costs within 1e-4 relative, theta within
-   1e-3 absolute (both sum in the same order, so what may remain is the
-   rounding of the CUDA and PyTorch math functions).
+   the forward and at harder inputs of the same shapes on both of the
+   kernel's paths (ties, NaN rows and queries, k = M = 16, M = 512 with
+   k = 16): indices equal, the same NaN distances, the others within 1e-5
+   relative; at the four calls the kernel's time by CUDA events around
+   20 calls in a CUDA graph (beside it the ``torch.profiler`` device time,
+   which must be found, and CUDA events over 20 calls launched back to
+   back), and the times of the plain version and of ``torch.cdist`` +
+   ``torch.topk``.
+6. ``lm``: the 2-D LM kernel against its plain version at the solve's
+   probe and refine shapes, on the model's labels and on those of the
+   true pose: the same NaN pattern, costs within 1e-4 relative, theta
+   within 1e-3 absolute (both sum in the same order, so what may remain
+   is the rounding of the CUDA and PyTorch math functions).  It prints
+   each launch's plan (cluster size C, inits per block G, warps per init
+   W), the kernel's registers and shared memory and its time against the
+   plain version, and checks pairs of 40960 and 81920 points (the longer
+   too long for shared memory) at the plans they pick.
 7. ``slice``: forward -> argmax -> ``solve_frustum_batch`` (64 inits, 24
    iterations, solver stride 2), three times after one warm-up, with the
    launch counts set to 0 just before; each kernel must have launched
@@ -54,10 +64,16 @@ announced as ``phase=<name> start|done t=<seconds>``:
     the ray-cast depth (stride 4, M=5120), then ``evaluate_registration``
     with ``icp`` (60 inits, 30 iterations), ``frustum`` (on the labels and
     on the predictions) and ``random``: finite summaries, at least 31
-    1-NN launches per ICP batch, and kNN and 2-D LM launches.
+    1-NN launches per ICP batch, and kNN and 2-D LM launches.  Then the
+    2-D LM kernel at the frustum solve's two launches on the dump's
+    labels and predictions (probe B=8 N=5120 I=64, refine N=20480 I=8),
+    at the plans they pick, held to the plain version as in ``lm`` and
+    timed.
 12. ``reference``: a small input (``config.tiny()``, f32) through the card
     path and the CPU path (the plain versions, which the CPU tests hold to
-    the JAX package): logits and solved poses (2-D and 6-DoF) must agree.
+    the JAX package): logits and solved poses (2-D and 6-DoF) must agree,
+    and ``sample_inits`` from one seeded CPU generator must give equal
+    inits with ``ang`` on the card and on the CPU.
 
 Then a ``kernels=`` line, one JSON line of per-kernel numbers (launches
 from the path each kernel serves: ``slice`` for kNN and the 2-D LM,
@@ -98,6 +114,9 @@ ICP_INITS = 60        # rounded up to 64 by init_chunk=8
 ICP_ITERS = 30
 PSEUDO_STRIDE = 4     # 160x512 depth -> M = 5120 pseudo points
 NN1_SETS = 8          # one ICP init group
+
+EVAL_INITS = 60      # the harness's frustum defaults (60 inits, 32
+EVAL_MAX_ITER = 32   # iterations, every point)
 
 KNN_RTOL = 1e-5
 LM_COST_RTOL = 1e-4
@@ -141,6 +160,38 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def dev_us(e) -> float:
+    """Device time of a profiler event average, in us."""
+    for key in ("self_device_time_total", "self_cuda_time_total"):
+        if getattr(e, key, None) is not None:
+            return float(getattr(e, key))
+    return 0.0
+
+
+def kernel_device_ms(torch, fn, reps: int, kernel: str,
+                     tries: int = 3) -> float:
+    """Mean device time in ms of the launches of kernels whose name holds
+    ``kernel`` in ``reps`` calls of ``fn()``, from ``torch.profiler``
+    after a warm-up call.  A trace that holds no such launch (one profiler
+    session in sixteen on the H100 came back without it) is traced again,
+    up to ``tries`` sessions; then the check fails."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(tries):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages() if kernel in e.key]
+        count = sum(e.count for e in evs)
+        total = sum(dev_us(e) for e in evs)
+        if count == reps and total > 0:
+            return total / count / 1e3
+    raise CheckFailed(f"{tries} profiler traces hold no {reps} device "
+                      f"launches of {kernel!r}")
+
+
 def nvidia_smi() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -159,35 +210,105 @@ def frustum_labels(torch, pc, P, K, H: int, W: int):
     return inside.long()
 
 
-def knn_phase(torch, batch, cfg):
-    from deepi2p_tpu_torch.ops import knn_plain, node_mean_and_count
+def check_knn(torch, name, q, db, k):
+    """The kNN kernel against its plain version on one input: indices
+    equal and in range, the same NaN distances, the others within
+    KNN_RTOL of the largest; returns the max abs error of the finite
+    distances."""
+    from deepi2p_tpu_torch import _build
+    from deepi2p_tpu_torch.ops import knn_plain
     from deepi2p_tpu_torch.ops.knn_cuda import knn_cuda
 
-    bf = lambda t: t.to(torch.bfloat16).float().contiguous()
+    B, N, _ = q.shape
+    path = "warp" if _build.load_library().knn_path(B, N) else "rows"
+    d2_k, idx_k = knn_cuda(q, db, k)
+    d2_p, idx_p = knn_plain(q, db, k)
+    torch.cuda.synchronize()
+    require(bool(torch.equal(idx_k, idx_p)),
+            f"knn {name}: indices differ from the plain version at "
+            f"{int((idx_k != idx_p).sum())} places")
+    require(int(idx_k.min()) >= 0 and int(idx_k.max()) < db.shape[1],
+            f"knn {name}: index out of range")
+    nan_k, nan_p = torch.isnan(d2_k), torch.isnan(d2_p)
+    require(bool(torch.equal(nan_k, nan_p)),
+            f"knn {name}: NaN distances differ from the plain version")
+    fin = ~nan_p
+    err = float((d2_k - d2_p).abs()[fin].max()) if bool(fin.any()) else 0.0
+    scale = float(d2_p.abs()[fin].max()) if bool(fin.any()) else 0.0
+    rel = err / max(scale, 1e-30)
+    require(rel <= KNN_RTOL, f"knn {name}: d2 rel err {rel:.3g}")
+    log(f"knn {name}: B={B} N={N} M={db.shape[1]} k={k} path={path}: "
+        f"indices equal, NaN distances {int(nan_p.sum())}, d2 max abs err "
+        f"{err:.3g}")
+    return err
+
+
+def knn_hard_cases(torch, pc, na, nb):
+    """Inputs where the kernel's integer key and warp selection could part
+    from a stable sort, at the forward's shapes (N=20480: the rows path;
+    N=128: the warp path): duplicated database rows with queries on them
+    (ties), NaN database rows and NaN queries, k = M = 16 (also with NaN
+    rows, which then fill the last places), and M = 512 with k = 16."""
+    gen = torch.Generator(device="cpu").manual_seed(7)
+
+    def dup(db):
+        db = db.clone()
+        half = db.shape[1] // 2
+        db[:, half:2 * half] = db[:, :half]
+        return db
+
+    def on_rows(q, db):
+        q = q.clone()
+        n = min(q.shape[1], db.shape[1])
+        q[:, :n] = db[:, :n]
+        return q
+
+    def nans(x, every):
+        x = x.clone()
+        x[:, ::every] = float("nan")
+        return x
+
+    big = pc[:, ::40][:, :512].contiguous()           # (B, 512, 3)
+    jitter = torch.rand(big.shape, generator=gen).to(big.device) * 1e-3
+    big = (big + jitter).contiguous()
+    cases = []
+    for tag, q in (("rows", pc), ("warp", nb)):
+        cases += [
+            (f"ties ({tag})", on_rows(q, dup(na)), dup(na), 3),
+            (f"ties k=16 ({tag})", on_rows(q, dup(na)), dup(na), 16),
+            (f"NaN rows and queries ({tag})", nans(q, 97 if tag == "rows"
+                                                   else 9),
+             nans(na, 17), 16),
+            (f"k=M=16 ({tag})", q, na[:, :16].contiguous(), 16),
+            (f"k=M=16 with NaN rows ({tag})", q, nans(na[:, :16], 5), 16),
+            (f"M=512 k=16 ({tag})", q, big, 16),
+        ]
+    return [(n, q.contiguous(), db.contiguous(), k) for n, q, db, k in cases]
+
+
+def knn_phase(torch, batch, cfg):
+    from deepi2p_tpu_torch.ops import knn_plain
+    from deepi2p_tpu_torch.ops.knn_cuda import knn_cuda
+    from deepi2p_tpu_torch.profile_knn import forward_calls, graph_ms
+
     pc, na, nb = batch["pc"], batch["node_a"], batch["node_b"]
-    _, idx1 = knn_cuda(bf(pc), bf(na), cfg.k_interp_point_a)
-    cmean, _ = node_mean_and_count(bf(pc), idx1[:, :, 0], cfg.node_a_num)
-    # the forward's four calls: encoder point->node_a and node_b->cluster
-    # means (bf16-rounded coordinates), point->node_b and node_a->node_b
-    calls = [("pc->node_a", bf(pc), bf(na), cfg.k_interp_point_a),
-             ("node_b->cluster_mean", bf(nb), cmean.contiguous(), cfg.k_ab),
-             ("pc->node_b", pc, nb, cfg.k_interp_point_b),
-             ("node_a->node_b", na, nb, cfg.k_interp_ab)]
+    calls = forward_calls(batch, cfg)
     row = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
                max_abs_err=0.0, bound_by=None)
+    event_total = device_total = 0.0
+    for name, q, db, k in knn_hard_cases(torch, pc, na, nb):
+        row["max_abs_err"] = max(row["max_abs_err"],
+                                 check_knn(torch, name, q, db, k))
     for name, q, db, k in calls:
-        d2_k, idx_k = knn_cuda(q, db, k)
-        d2_p, idx_p = knn_plain(q, db, k)
-        torch.cuda.synchronize()
-        require(bool(torch.equal(idx_k, idx_p)),
-                f"knn {name}: indices differ from the plain version at "
-                f"{int((idx_k != idx_p).sum())} places")
-        err = float((d2_k - d2_p).abs().max())
-        rel = err / max(float(d2_p.abs().max()), 1e-30)
-        require(rel <= KNN_RTOL, f"knn {name}: d2 rel err {rel:.3g}")
-        require(int(idx_k.min()) >= 0 and int(idx_k.max()) < db.shape[1],
-                f"knn {name}: index out of range")
-        ms = cuda_ms(torch, lambda: knn_cuda(q, db, k), 20)
+        err = check_knn(torch, name, q, db, k)
+        # the kernel's time: CUDA events around 20 calls in a CUDA graph;
+        # beside it the profiler's device time and CUDA events over 20
+        # calls launched back to back from Python (the earlier yardstick,
+        # which for the N=128 calls is the wrapper's launch rate)
+        ms = graph_ms(lambda: knn_cuda(q, db, k), 20)
+        device_ms = kernel_device_ms(torch, lambda: knn_cuda(q, db, k), 20,
+                                     "knn_")
+        event_ms = cuda_ms(torch, lambda: knn_cuda(q, db, k), 20)
         plain_ms = cuda_ms(torch, lambda: knn_plain(q, db, k), 3)
         lib_ms = cuda_ms(torch, lambda: torch.topk(
             torch.cdist(q, db), k, dim=-1, largest=False), 5)
@@ -198,14 +319,21 @@ def knn_phase(torch, batch, cfg):
         t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32_OPS * 1e3
         bound = max(t_bytes, t_ops)
         log(f"knn {name}: B={B} N={N} M={M} D={D} k={k} ms={ms:.4f} "
-            f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+            f"(CUDA events over 20 calls in a CUDA graph; profiler device "
+            f"time {device_ms:.4f}; CUDA events over 20 calls back to back "
+            f"{event_ms:.4f}) plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
             f"bound_ms={bound:.5f} max_abs_err={err:.3g}")
+        event_total += event_ms
+        device_total += device_ms
         row["ms"] += ms
         row["plain_ms"] += plain_ms
         row["library_ms"] += lib_ms
         row["bound_ms"] += bound
         row["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
         row["max_abs_err"] = max(row["max_abs_err"], err)
+    log(f"knn: the four calls {row['ms']:.4f} ms (CUDA events, CUDA graph), "
+        f"profiler device time {device_total:.4f}, CUDA events back to back "
+        f"{event_total:.4f}; bound {row['bound_ms']:.5f}")
     return row
 
 
@@ -233,6 +361,38 @@ def compare_lm(torch, tag, args, kw):
     return th_p, c_p, terr
 
 
+def lm_streamed_check(torch, batch, cfg):
+    """Pairs longer than the main path's, at the plan each one picks: two
+    Oxford clouds end to end (40960 points, clusters of 8 that keep them
+    in shared memory) and four (81920 points, more than 8 blocks keep, so
+    the kernel reads them from device memory in each sweep); held to the
+    plain version."""
+    from deepi2p_tpu_torch.register import initial_guess, sample_inits
+    from deepi2p_tpu_torch.register.frustum_cuda import (lm_p4_layout,
+                                                         lm_p4_plan)
+
+    pc4 = batch["pc"][:4]
+    for pc, resident in ((torch.cat([pc4[0:2], pc4[2:4]], dim=1), True),
+                         (pc4.reshape(1, -1, 3), False)):
+        pc = pc.contiguous()
+        labels = torch.ones(pc.shape[:2], device=pc.device)
+        ang, valid = initial_guess(pc, labels)
+        theta = sample_inits(torch.Generator().manual_seed(4), ang, 8)
+        B, N, _ = pc.shape
+        C, G, W = lm_p4_plan(B, N, theta.shape[1])
+        S, res = lm_p4_layout(N, C, W)
+        where = ("shared memory" if res else
+                 f"device memory: {W * S} points per block")
+        require(res == resident, f"lm: the {N}-point pair's plan keeps its "
+                f"points in {where}")
+        args = (pc, labels, valid.contiguous(),
+                batch["K"][:B].contiguous(), theta.contiguous(),
+                (-5.0, -0.1, -10.0), (5.0, 0.1, 10.0))
+        compare_lm(torch, f"long pair (B={B} N={N}, C={C} G={G} W={W}, "
+                   f"points in {where})", args,
+                   dict(H=cfg.img_H, W=cfg.img_W, max_iter=3))
+
+
 def lm_bound(inputs, I: int, iters: int, P: int):
     """(bound ms, bound_by) of one LM launch from its shapes: the ops
     counted from the kernel per point, init and sweep, against each input
@@ -250,57 +410,96 @@ def lm_bound(inputs, I: int, iters: int, P: int):
                                  else "bytes")
 
 
-def lm_phase(torch, batch, cfg, pred):
-    """The LM kernel at the solve's probe and refine shapes, on the main
-    path's own inputs (the seeded model's labels) and on the labels of
-    the true pose."""
+def lm_halving(torch, tag, pc, labels, K, *, H: int, W: int,
+               solver_stride: int, n_inits: int, max_iter: int,
+               timed: bool):
+    """The 2-D LM kernel against its plain version at the two launches of
+    ``solve_frustum_batch``'s halving solve on these inputs, at the plan
+    each launch picks: the probe (every 4th point, the inits padded to a
+    multiple of 8, 8 iterations), then the refine of the probe's best
+    eighth on every ``solver_stride``-th point.  With ``timed``, each
+    launch is timed (CUDA events over 5 launches) beside its plain version
+    and its bound; returns one dict per launch."""
     from deepi2p_tpu_torch.register import (initial_guess, lm_solve_cuda,
                                             lm_solve_plain, sample_inits)
+    from deepi2p_tpu_torch.register.frustum import I_BLK
+    from deepi2p_tpu_torch.register.frustum_cuda import (lm_p4_plan,
+                                                         lm_p4_smem_bytes)
 
-    H, W = cfg.img_H, cfg.img_W
     kw = dict(H=H, W=W)
     t_lb, t_ub = (-5.0, -0.1, -10.0), (5.0, 0.1, 10.0)
-    pc, K = batch["pc"], batch["K"].contiguous()
-    truth = frustum_labels(torch, pc, batch["P"], batch["K"], H, W)
-    s, ps = SOLVER_STRIDE, max(1, 4 // SOLVER_STRIDE)
-    keep = max((N_INITS // 8) // 8 * 8, 8)
+    ang, valid = initial_guess(pc, labels)
+    theta = sample_inits(torch.Generator().manual_seed(1), ang, n_inits)
+    pad = (-theta.shape[1]) % I_BLK
+    theta = torch.cat([theta, theta[:, :1].expand(-1, pad, -1)], 1)
+    theta = theta.contiguous()
+    s, ps = solver_stride, max(1, 4 // solver_stride)
+    probe_iter = min(8, max_iter)
+    keep = max((theta.shape[1] // 8) // I_BLK * I_BLK, I_BLK)
 
     def sub(x, stride):
         return x[:, ::stride].contiguous()
 
+    full = [sub(x, s) for x in (pc, labels.float(), valid)]
+    probe = [sub(x, ps) for x in full]
+    rows = []
+    for name, inputs, iters in (("probe", probe, probe_iter),
+                                ("refine", full, max_iter - probe_iter)):
+        args = (*inputs, K, theta, t_lb, t_ub)
+        B, N, _ = inputs[0].shape
+        I = theta.shape[1]
+        C, G, Wp = lm_p4_plan(B, N, I)
+        th_p, c_p, terr = compare_lm(
+            torch, f"{name} ({tag}, B={B} N={N} I={I} iters={iters}, "
+            f"C={C} G={G} W={Wp})", args, dict(kw, max_iter=iters))
+        row = dict(name=name, err=terr)
+        if timed:
+            row["ms"] = cuda_ms(torch, lambda: lm_solve_cuda(
+                *args, max_iter=iters, **kw), 5)
+            row["plain_ms"] = cuda_ms(torch, lambda: lm_solve_plain(
+                *args, max_iter=iters, **kw), 1)
+            row["bound_ms"], row["bound_by"] = lm_bound(inputs, I, iters, 4)
+            log(f"lm {name} ({tag}): B={B} N={N} I={I} iters={iters} "
+                f"C={C} G={G} W={Wp}: grid {(-(-I // G)) * C}x{B} blocks "
+                f"of {32 * G * Wp} threads in clusters of {C}, "
+                f"{lm_p4_smem_bytes(N, C, Wp)} B dynamic shared memory per "
+                f"block: ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+                f"bound_ms={row['bound_ms']:.5f}")
+        rows.append(row)
+        if name == "probe":
+            top = torch.argsort(c_p, dim=1, stable=True)[:, :keep]
+            theta = torch.gather(
+                th_p, 1, top[:, :, None].expand(-1, -1, 4)).contiguous()
+    return rows
+
+
+def lm_phase(torch, batch, cfg, pred):
+    """The 2-D LM kernel at the main path's probe and refine, on its own
+    inputs (the seeded model's labels) and on the labels of the true
+    pose; pairs too long for one cluster's shared memory."""
+    from deepi2p_tpu_torch.register.frustum_cuda import lm_p4_attrs
+
+    attrs = lm_p4_attrs()
+    log(f"lm: P=4 kernel {attrs['regs']} registers per thread, "
+        f"{attrs['static_smem']} B static shared memory, "
+        f"{attrs['spill_bytes']} B spilled per thread, at most "
+        f"{attrs['max_threads']} threads per block")
+    pc, K = batch["pc"], batch["K"].contiguous()
+    truth = frustum_labels(torch, pc, batch["P"], batch["K"], cfg.img_H,
+                           cfg.img_W)
     row = dict(ms=0.0, plain_ms=0.0, library_ms=None, bound_ms=0.0,
                max_abs_err=0.0, bound_by=None)
-    for lab_name, labels in (("truth", truth), ("model", pred)):
-        ang, valid = initial_guess(pc, labels)
-        gen = torch.Generator(device=pc.device).manual_seed(1)
-        theta = sample_inits(gen, ang, N_INITS).contiguous()
-        full = [sub(x, s) for x in (pc, labels.float(), valid)]
-        probe = [sub(x, ps) for x in full]
-        for name, inputs, iters in (("probe", probe, PROBE_ITER),
-                                    ("refine", full, MAX_ITER - PROBE_ITER)):
-            args = (*inputs, K, theta, t_lb, t_ub)
-            th_p, c_p, terr = compare_lm(
-                torch, f"{name} ({lab_name} labels)", args,
-                dict(kw, max_iter=iters))
-            row["max_abs_err"] = max(row["max_abs_err"], terr)
-            if lab_name == "model":
-                ms = cuda_ms(torch, lambda: lm_solve_cuda(
-                    *args, max_iter=iters, **kw), 5)
-                plain_ms = cuda_ms(torch, lambda: lm_solve_plain(
-                    *args, max_iter=iters, **kw), 1)
-                B, N, _ = inputs[0].shape
-                I = theta.shape[1]
-                bound, row["bound_by"] = lm_bound(inputs, I, iters, 4)
-                log(f"lm {name}: B={B} N={N} I={I} iters={iters} "
-                    f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                    f"bound_ms={bound:.5f}")
-                row["ms"] += ms
-                row["plain_ms"] += plain_ms
-                row["bound_ms"] += bound
-            if name == "probe":
-                top = torch.argsort(c_p, dim=1, stable=True)[:, :keep]
-                theta = torch.gather(
-                    th_p, 1, top[:, :, None].expand(-1, -1, 4)).contiguous()
+    for lab_name, labels in (("truth labels", truth), ("model labels", pred)):
+        timed = lab_name == "model labels"
+        for r in lm_halving(torch, lab_name, pc, labels, K, H=cfg.img_H,
+                            W=cfg.img_W, solver_stride=SOLVER_STRIDE,
+                            n_inits=N_INITS, max_iter=MAX_ITER, timed=timed):
+            row["max_abs_err"] = max(row["max_abs_err"], r["err"])
+            if timed:
+                for key in ("ms", "plain_ms", "bound_ms"):
+                    row[key] += r[key]
+                row["bound_by"] = r["bound_by"]
+    lm_streamed_check(torch, batch, cfg)
     return row
 
 
@@ -479,12 +678,6 @@ def icp_profile(torch, source, target):
         run()
         torch.cuda.synchronize()
         wall_prof = time.perf_counter() - t
-
-    def dev_us(e):
-        for key in ("self_device_time_total", "self_cuda_time_total"):
-            if getattr(e, key, None) is not None:
-                return float(getattr(e, key))
-        return 0.0
 
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
@@ -674,6 +867,29 @@ def solve6_phase(torch, model, batch, cfg):
     return launches
 
 
+def eval_lm_check(torch, cfg, dump_dir):
+    """The 2-D LM kernel at the two launches of the harness's frustum
+    solve (KITTI B=8, every point, 60 inits padded to 64, 32 iterations:
+    probe N=5120 I=64, refine N=20480 I=8), on the dump's labels and
+    predictions, each at the plan it picks: held to the plain version and
+    timed."""
+    import numpy as np
+    from deepi2p_tpu_torch.eval.dump import list_dump_prefixes, load_dump
+
+    dumps = [load_dump(dump_dir, p) for p in list_dump_prefixes(dump_dir)]
+
+    def stack(field, dtype=torch.float32):
+        return torch.as_tensor(np.stack([d[field] for d in dumps])).to(
+            "cuda", dtype).contiguous()
+
+    pc, K = stack("pc"), stack("K")
+    for field, tag in (("coarse_label", "KITTI eval labels"),
+                       ("coarse_pred", "KITTI eval predictions")):
+        lm_halving(torch, tag, pc, stack(field, torch.int64), K,
+                   H=cfg.img_H, W=cfg.img_W, solver_stride=1,
+                   n_inits=EVAL_INITS, max_iter=EVAL_MAX_ITER, timed=True)
+
+
 def eval_phase(torch, cfg, raw):
     """The evaluation path end to end, over a dump the port's detector
     writes, at the KITTI shape."""
@@ -721,9 +937,10 @@ def eval_phase(torch, cfg, raw):
             for key in ("rte_mean", "rre_mean", "success_rate"):
                 require(math.isfinite(summ[key]),
                         f"eval {name}: non-finite {key}")
-    launches = {"knn": knn_cuda.launches, "nn1": nn1_cuda.launches,
-                "lm_p4": lm_solve_cuda.launches}
-    log(f"eval: launches {launches}")
+        launches = {"knn": knn_cuda.launches, "nn1": nn1_cuda.launches,
+                    "lm_p4": lm_solve_cuda.launches}
+        log(f"eval: launches {launches}")
+        eval_lm_check(torch, cfg, dump_dir)
     require(counts["icp"][0] >= ICP_ITERS + 1,
             f"nn1 launches per ICP batch {counts['icp'][0]} < "
             f"{ICP_ITERS + 1}")
@@ -758,6 +975,17 @@ def reference_phase(torch):
 
     pred = c_cpu.argmax(-1)
     ang, _ = initial_guess(b_cpu["pc"], pred)
+    # one seed, a CPU generator: the same inits with ang on either device
+    for is_2d in (True, False):
+        inits = {dev: sample_inits(torch.Generator().manual_seed(5),
+                                   ang.to(dev), N_INITS, is_2d=is_2d)
+                 for dev in ("cpu", "cuda")}
+        require(inits["cuda"].device.type == "cuda"
+                and bool(torch.equal(inits["cuda"].cpu(), inits["cpu"])),
+                f"reference: sample_inits (is_2d={is_2d}) draws differ "
+                f"between ang on the card and on the CPU")
+    log("reference: sample_inits from one seed equal with ang on the card "
+        "and on the CPU (2-D and 6-DoF)")
     theta0 = sample_inits(torch.Generator().manual_seed(0), ang, N_INITS)
     res = {}
     for dev, b in (("cpu", b_cpu), ("cuda", b_gpu)):

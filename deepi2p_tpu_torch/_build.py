@@ -51,11 +51,21 @@ _F = ctypes.c_float
 SIGNATURES = {
     # q, db, d2, idx, B, N, M, D, k, stream
     "knn_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # B, N: which path knn_f32 takes (0 rows, 1 warp)
+    "knn_path": [_I, _I],
     # pts, labels, valid, kparams, theta0, theta_out, cost_out,
-    # B, N, I, max_iter, H1, W1, lb0, lb1, lb2, ub0, ub1, ub2, stream
+    # B, N, I, max_iter, H1, W1, lb0, lb1, lb2, ub0, ub1, ub2,
+    # C (blocks per cluster), G (inits per block), W (warps per init),
+    # S (points per virtual slice), resident (0/1: points in shared
+    # memory), stream
     "lm_solve_p4_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                        _F, _F, _F, _F, _F, _F, _F, _F, _P],
-    # the same for the 6-DoF mode (theta0 and theta_out (B, I, 6))
+                        _F, _F, _F, _F, _F, _F, _F, _F, _I, _I, _I, _I, _I,
+                        _P],
+    # out (4 ints): the P = 4 kernel's registers, static shared memory,
+    # spill bytes per thread, most threads per block
+    "lm_p4_func_attrs": [_P],
+    # the 6-DoF mode, as the 2-D one without the layout (theta0 and
+    # theta_out (B, I, 6))
     "lm_solve_p6_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                         _F, _F, _F, _F, _F, _F, _F, _F, _P],
     # q, db, d2, idx, S (query sets), N, M, D, Q (sets per database), stream

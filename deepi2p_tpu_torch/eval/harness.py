@@ -9,8 +9,9 @@ success rate, and optionally save ``P_pred_all_np.npy`` /
 Methods: ``frustum`` (the frustum LM, kernel on the card), ``icp``
 (batched ICP, 1-NN kernel on the card) and ``random`` (numpy draws, the
 same as the JAX package's for the same seed).  ``pnp`` is not ported yet
-(``ROADMAP.md`` A, slice 5).  The frustum and ICP inits come from
-``torch.Generator``s seeded from ``seed``, not from ``jax.random``.
+(``ROADMAP.md`` A, slice 5).  The frustum and ICP inits come from CPU
+``torch.Generator``s seeded from ``seed``, so the card and the CPU draw
+the same inits; they are not ``jax.random``'s numbers.
 """
 from __future__ import annotations
 
@@ -120,7 +121,7 @@ def evaluate_registration(data_dir: str, *, method: str = "frustum",
     if method == "random":
         P_pred_all = random_pose_baseline(n, np.random.default_rng(seed))
     elif method == "frustum":
-        gen = torch.Generator(device=dev).manual_seed(seed)
+        gen = torch.Generator().manual_seed(seed)
         field = "coarse_label" if use_labels else "coarse_pred"
         for start, chunk in chunks:
             pw = None
@@ -144,7 +145,7 @@ def evaluate_registration(data_dir: str, *, method: str = "frustum",
             # seed poses: the frustum solution from the same predictions
             # at the reference budget
             P_seed_all = np.zeros((n, 4, 4), np.float32)
-            gen_s = torch.Generator(device=dev).manual_seed(seed + 9000)
+            gen_s = torch.Generator().manual_seed(seed + 9000)
             for start, chunk in chunks:
                 P_s, _ = solve_frustum_batch(
                     _stack(chunk, "pc", dev),

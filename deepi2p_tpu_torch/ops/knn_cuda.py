@@ -28,7 +28,8 @@ def _check_pair(name, query, database):
 
 def knn_cuda(query: torch.Tensor, database: torch.Tensor, k: int):
     """Exact kNN on the card: (B,N,D), (B,M,D) f32 -> d2 (B,N,k) f32 and
-    idx (B,N,k) int32, nearest first, ties to the lowest index."""
+    idx (B,N,k) int32, nearest first, ties to the lowest index, NaN
+    distances last (written as NaN)."""
     _check_pair("knn_cuda", query, database)
     B, N, D = query.shape
     Bd, M, Dd = database.shape

@@ -106,12 +106,17 @@ def sample_inits(generator: torch.Generator, ang: torch.Tensor, n_inits: int,
     """Random inits per pair (``registration_lsq.py:160-168``),
     ``ry ~ N(ang, sigma)``, ``tz ~ U(-a, a)``: ang (B,) -> (B, n_inits, 4)
     as ``[ry, 0, 0, tz]``, or (B, n_inits, 6) as ``[0, ry, 0, 0, 0, tz]``
-    for the 6-DoF mode.  The draws come from ``generator`` (on ``ang``'s
-    device); they are not the JAX package's ``jax.random`` numbers."""
+    for the 6-DoF mode.  The draws come from ``generator`` on its own
+    device and are then moved to ``ang``'s, so a CPU generator gives the
+    same inits whether ``ang`` lies on the CPU or on the card (the JAX
+    package's ``jax.random`` is backend-independent too, though its
+    numbers are not these)."""
     B = ang.shape[0]
-    kw = dict(generator=generator, device=ang.device, dtype=ang.dtype)
-    ry = ang[:, None] + ry_sigma * torch.randn(B, n_inits, **kw)
-    tz = (torch.rand(B, n_inits, **kw) * 2.0 - 1.0) * init_t_amplitude
+    kw = dict(generator=generator, device=generator.device, dtype=ang.dtype)
+    noise = torch.randn(B, n_inits, **kw).to(ang.device)
+    u = torch.rand(B, n_inits, **kw).to(ang.device)
+    ry = ang[:, None] + ry_sigma * noise
+    tz = (u * 2.0 - 1.0) * init_t_amplitude
     z = torch.zeros_like(ry)
     if is_2d:
         return torch.stack([ry, z, z, tz], dim=-1)

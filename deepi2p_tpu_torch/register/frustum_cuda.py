@@ -10,10 +10,15 @@ and CPU tensors to :func:`lm_solve_plain`.
 
 :func:`lm_solve_plain` is vectorised over (pairs, inits) and repeats the
 kernel's arithmetic step for step: the same per-point expressions in the
-same order, and every sum over points taken in the kernel's order (256
-threads striding over the points, a 32-lane butterfly in each warp, then
-the 8 warps in turn).  It has the Pallas kernel's carry semantics: one
-sweep per iteration at the proposal, the carried H and g kept on a
+same order, and every sum over points taken in the kernel's order.  For
+P = 4 that is the cluster layout of :func:`lm_p4_plan`: C W virtual slices
+of the points, each lane's points of a slice in turn, a 32-lane
+butterfly, then the slices in turn (:func:`_cluster_sum`), with each
+slice's inside-labelled points first when the kernel keeps them in shared
+memory (:func:`_p4_point_order`).  For P = 6 it is 256 threads striding
+over the points, a 32-lane butterfly in each warp, then the 8 warps in
+turn (:func:`_block_sum`).  It has the Pallas kernel's carry semantics:
+one sweep per iteration at the proposal, the carried H and g kept on a
 rejected step.
 
 The 6-DoF Jacobian is derived by hand (the Pallas kernel linearises with
@@ -35,6 +40,8 @@ path, the residual rows and hence the Jacobian rows carry the point's
 """
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Sequence, Tuple
 
 import torch
@@ -42,8 +49,15 @@ import torch.nn.functional as F
 
 from .. import _build
 
-THREADS = 256        # the kernel's block size (and the plain sum order)
+THREADS = 256        # the P = 6 kernel's block size (and its sum order)
 WARP = 32
+# The P = 4 kernel's launch (csrc/frustum_lm.cu, lm_p4_kernel): clusters of
+# at most P4_MAX_CLUSTER blocks of G x W <= P4_MAX_WARPS warps; a block
+# whose points number at most P4_TILE keeps them in shared memory.
+P4_MAX_CLUSTER = 8
+P4_MAX_WARPS = 16
+P4_TILE = 5120
+P4_TARGET_WARPS = 2048
 # f32 operations per point per init per sweep, counted from the kernel's
 # arithmetic (adds, multiplies, divides, compares, selects and each
 # transcendental as one): projection and Jacobian ~35, residuals, signs
@@ -58,8 +72,75 @@ LM_OPS_PER_POINT = 150
 LM6_OPS_PER_POINT = 429
 
 
+def lm_p4_plan(B: int, N: int, I: int) -> Tuple[int, int, int]:
+    """(C, G, W) of the P = 4 kernel's launch for B pairs, N points and I
+    inits: one cluster of C blocks per (pair, group of G inits), W warps
+    per init in each block.
+
+    Clusters of two blocks: the H100 places clusters of 4 or 8 blocks on
+    only 124 of its 132 SMs, and a cluster barrier per sweep makes every
+    cluster wait for its busiest SM, so blocks must spread evenly.  W
+    doubles until the launch has :data:`P4_TARGET_WARPS` warps (about 16
+    per SM), G = min(8, I, 16 / W), and C doubles only while a block's
+    points would not fit shared memory.  The main path's probe (B=32,
+    N=5120, I=64) gets (2, 8, 1), 512 blocks of 8 warps; its refine
+    (N=10240, I=8) (2, 4, 4), 128 blocks of 16 warps, one per SM
+    (``python -m deepi2p_tpu_torch.profile_lm_plans`` times the other
+    plans)."""
+    C, W = 2, 1
+    while B * I * C * W < P4_TARGET_WARPS and W < P4_MAX_WARPS:
+        W *= 2
+    G = max(1, min(8, I, P4_MAX_WARPS // W))
+    while not lm_p4_layout(N, C, W)[1] and C < P4_MAX_CLUSTER:
+        C *= 2
+    return C, G, W
+
+
+def lm_p4_layout(N: int, C: int, W: int) -> Tuple[int, bool]:
+    """(S, resident) of a P = 4 launch: the points are cut into C W
+    virtual slices of S points (S a multiple of 32; the last ones short or
+    empty), and a block's W S points stay in shared memory when they
+    number at most :data:`P4_TILE`.  The kernel takes both from here and
+    only checks them; the plain version sums in the same layout."""
+    S = -(-N // (WARP * C * W)) * WARP
+    return S, W * S <= P4_TILE
+
+
+def _p4_point_order(labels: torch.Tensor, S: int) -> torch.Tensor:
+    """(B, N) point order of a resident P = 4 launch: each virtual slice
+    of S points with its inside-labelled points (label > 0.5) first, both
+    groups in index order, as the kernel stages them."""
+    N = labels.shape[1]
+    pos = torch.arange(N, device=labels.device)
+    key = (pos // S) * 2 + (~(labels > 0.5)).long()
+    return torch.argsort(key, dim=1, stable=True)
+
+
+def _cluster_sum(x: torch.Tensor, V: int, S: int) -> torch.Tensor:
+    """Sum over the last axis in the P = 4 kernel's order for V = C W
+    virtual slices of S points (:func:`lm_p4_layout`): each of a slice's
+    32 lanes summing its points from 0 in increasing index, a butterfly
+    over the lanes, then the slices in turn.  The zero padding adds +0 to
+    sums that are never -0, so it changes nothing."""
+    N = x.shape[-1]
+    x = F.pad(x, (0, V * S - N))
+    x = x.reshape(*x.shape[:-1], V, S // WARP, WARP)
+    acc = torch.zeros_like(x[..., 0, :])
+    for j in range(S // WARP):
+        acc = acc + x[..., j, :]
+    off = WARP // 2
+    while off >= 1:
+        acc = acc[..., :off] + acc[..., off:2 * off]
+        off //= 2
+    acc = acc[..., 0]                                  # (..., V)
+    tot = acc[..., 0]
+    for r in range(1, V):
+        tot = tot + acc[..., r]
+    return tot
+
+
 def _block_sum(x: torch.Tensor) -> torch.Tensor:
-    """Sum over the last axis in the kernel's order."""
+    """Sum over the last axis in the P = 6 kernel's order."""
     N = x.shape[-1]
     rows = -(-N // THREADS)
     x = F.pad(x, (0, rows * THREADS - N))
@@ -108,8 +189,9 @@ def _residual_parts(px, py, p2, H1: float, W1: float):
 
 
 def _sweep(theta, xs, ys, zs, lab, val, fx, fy, cx, cy, H1: float,
-           W1: float):
-    """H (10 upper terms), g (4) and cost at theta, each (B, I).
+           W1: float, V: int, S: int):
+    """H (10 upper terms), g (4) and cost at theta, each (B, I), summed in
+    the order of a launch with V = C W virtual slices of S points.
 
     theta (B, I, 4); xs..val (B, 1, N); fx..cy (B, 1, 1)."""
     ry = theta[..., 0:1]
@@ -170,7 +252,7 @@ def _sweep(theta, xs, ys, zs, lab, val, fx, fy, cx, cy, H1: float,
         w * (J03 * r0 + J13 * r1 + J23 * r2),
         0.5 * torch.log1p(sb) * val,
     ], dim=2)                                        # (B, I, 15, N)
-    tot = _block_sum(terms)                          # (B, I, 15)
+    tot = _cluster_sum(terms, V, S)                  # (B, I, 15)
     return tot[..., :10], tot[..., 10:14], tot[..., 14]
 
 
@@ -347,14 +429,27 @@ def _check_inputs(pts, labels, valid, K, theta0):
 
 
 def lm_solve_plain(pts, labels, valid, K, theta0, t_lb, t_ub, *, H: int,
-                   W: int, max_iter: int = 16):
+                   W: int, max_iter: int = 16, _plan=None):
     """Plain version of the LM kernel (any device; f32).
 
-    Args as :func:`lm_solve`.  Returns (theta (B, I, P), cost (B, I))."""
+    Args as :func:`lm_solve`.  Returns (theta (B, I, P), cost (B, I)).
+    ``_plan`` (P = 4; for tests and plan timings) replaces
+    :func:`lm_p4_plan`'s (C, G, W), whose sum order is repeated."""
     _check_inputs(pts, labels, valid, K, theta0)
-    sweep_fn = _sweep if theta0.shape[2] == 4 else _sweep6
     f32 = torch.float32
     pts, labels, valid = pts.to(f32), labels.to(f32), valid.to(f32)
+    if theta0.shape[2] == 4:
+        C, _, warps = _plan or lm_p4_plan(pts.shape[0], pts.shape[1],
+                                          theta0.shape[1])
+        S, resident = lm_p4_layout(pts.shape[1], C, warps)
+        if resident:
+            order = _p4_point_order(labels, S)
+            pts = torch.gather(pts, 1, order[..., None].expand(-1, -1, 3))
+            labels = torch.gather(labels, 1, order)
+            valid = torch.gather(valid, 1, order)
+        sweep_fn = functools.partial(_sweep, V=C * warps, S=S)
+    else:
+        sweep_fn = _sweep6
     xs, ys, zs = (pts[:, None, :, d] for d in range(3))        # (B, 1, N)
     lab, val = labels[:, None, :], valid[:, None, :]
     K = K.to(f32)
@@ -383,9 +478,11 @@ def lm_solve_plain(pts, labels, valid, K, theta0, t_lb, t_ub, *, H: int,
 
 
 def lm_solve_cuda(pts, labels, valid, K, theta0, t_lb, t_ub, *, H: int,
-                  W: int, max_iter: int = 16):
+                  W: int, max_iter: int = 16, _plan=None):
     """The LM kernel on the card, in the mode of theta0's P (4 or 6).  All
-    inputs f32, contiguous, on one CUDA device.
+    inputs f32, contiguous, on one CUDA device.  The P = 4 launch's layout
+    is :func:`lm_p4_plan`'s and :func:`lm_p4_layout`'s; ``_plan`` (for
+    tests and plan timings) replaces the (C, G, W).
     ``lm_solve_cuda.launches`` counts the launches of the 2-D mode,
     ``lm_solve_cuda.launches_p6`` those of the 6-DoF mode."""
     _check_inputs(pts, labels, valid, K, theta0)
@@ -410,12 +507,25 @@ def lm_solve_cuda(pts, labels, valid, K, theta0, t_lb, t_ub, *, H: int,
     cost = torch.empty((B, I), dtype=torch.float32, device=dev)
     lib = _build.load_library()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    name = "lm_solve_p4_f32" if P == 4 else "lm_solve_p6_f32"
-    code = getattr(lib, name)(
-        pts.data_ptr(), labels.data_ptr(), valid.data_ptr(),
-        kparams.data_ptr(), theta0.data_ptr(), theta.data_ptr(),
-        cost.data_ptr(), B, N, I, int(max_iter), float(H - 1), float(W - 1),
-        *(float(v) for v in t_lb), *(float(v) for v in t_ub), stream)
+    args = (pts.data_ptr(), labels.data_ptr(), valid.data_ptr(),
+            kparams.data_ptr(), theta0.data_ptr(), theta.data_ptr(),
+            cost.data_ptr(), B, N, I, int(max_iter), float(H - 1),
+            float(W - 1), *(float(v) for v in t_lb),
+            *(float(v) for v in t_ub))
+    if P == 4:
+        C, G, warps = _plan or lm_p4_plan(B, N, I)
+        if not (1 <= C <= P4_MAX_CLUSTER and G >= 1 and warps >= 1
+                and G * warps <= P4_MAX_WARPS):
+            raise ValueError(f"lm_solve_cuda: plan (C={C}, G={G}, "
+                             f"W={warps}) outside C<={P4_MAX_CLUSTER}, "
+                             f"G*W<={P4_MAX_WARPS}")
+        S, resident = lm_p4_layout(N, C, warps)
+        name = "lm_solve_p4_f32"
+        code = lib.lm_solve_p4_f32(*args, C, G, warps, S, int(resident),
+                                   stream)
+    else:
+        name = "lm_solve_p6_f32"
+        code = lib.lm_solve_p6_f32(*args, stream)
     _build.check(code, name)
     if P == 4:
         lm_solve_cuda.launches += 1
@@ -426,6 +536,23 @@ def lm_solve_cuda(pts, labels, valid, K, theta0, t_lb, t_ub, *, H: int,
 
 lm_solve_cuda.launches = 0
 lm_solve_cuda.launches_p6 = 0
+
+
+def lm_p4_attrs() -> dict:
+    """The built P = 4 kernel's registers per thread, static shared memory
+    and spill bytes per thread, and its most threads per block."""
+    buf = (ctypes.c_int * 4)()
+    _build.check(_build.load_library().lm_p4_func_attrs(
+        ctypes.addressof(buf)), "lm_p4_func_attrs")
+    return dict(regs=buf[0], static_smem=buf[1], spill_bytes=buf[2],
+                max_threads=buf[3])
+
+
+def lm_p4_smem_bytes(N: int, C: int, W: int) -> int:
+    """Dynamic shared memory of one block of a P = 4 launch: 20 bytes for
+    each of its W S points when they stay there, else none."""
+    S, resident = lm_p4_layout(N, C, W)
+    return W * S * 20 if resident else 0
 
 
 def lm_solve(pts, labels, valid, K, theta0, t_lb: Sequence[float],

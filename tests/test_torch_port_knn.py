@@ -80,3 +80,69 @@ def test_knn_cuda_refuses_cpu_tensors():
     q = torch.zeros(1, 4, 3)
     with pytest.raises(ValueError, match="CUDA"):
         knn_cuda(q, q, 1)
+
+
+def _on_duplicates(M, N, seed, B=2, D=3):
+    """Database rows duplicated in pairs, queries sitting on some of them:
+    every such query has tied nearest rows."""
+    rng = np.random.default_rng(seed)
+    db = rng.uniform(-1.0, 1.0, (B, M, D)).astype(np.float32)
+    half = M // 2
+    db[:, half:2 * half] = db[:, :half]
+    q = rng.uniform(-1.0, 1.0, (B, N, D)).astype(np.float32)
+    q[:, :min(N, M)] = db[:, :min(N, M)]
+    return q, db
+
+
+# the main path's kNN widths (M=128 with k=3 and k=16), k = M = 16 and the
+# largest database the kernel takes (M=512, k=16), with ties everywhere
+@pytest.mark.parametrize("M,k", [(128, 3), (128, 16), (16, 16), (512, 16)])
+def test_knn_ties_at_main_path_widths_match_pallas(M, k):
+    q, db = _on_duplicates(M, N=300, seed=M + k)
+    d2_t, idx_t = knn(torch.from_numpy(q), torch.from_numpy(db), k)
+    d2_p, idx_p = knn_pallas(jnp.asarray(q), jnp.asarray(db), k,
+                             interpret=True)
+    np.testing.assert_array_equal(idx_t.numpy(), np.asarray(idx_p))
+    np.testing.assert_allclose(d2_t.numpy(), np.asarray(d2_p), rtol=0,
+                               atol=1e-6)
+    # a query on a duplicated row: that row and its copy, lowest first
+    half = M // 2
+    assert idx_t[0, 0, :2].tolist() == [0, half]
+
+
+def _stable_numpy_knn(q, db, k):
+    """numpy's stable argsort of the direct distances (NaN last)."""
+    d2 = ((db[:, None, :, :] - q[:, :, None, :]) ** 2).sum(-1,
+                                                          dtype=np.float32)
+    idx = np.argsort(d2, axis=-1, kind="stable")[..., :k]
+    return np.take_along_axis(d2, idx, -1), idx.astype(np.int32)
+
+
+# NaN rows and NaN queries: numpy's stable sort is the oracle here, since
+# the Pallas kernel has no answer there (next test)
+@pytest.mark.parametrize("M,k", [(128, 16), (16, 16), (128, 3)])
+def test_knn_nan_rows_and_queries_sort_last_stably(M, k):
+    q, db = _on_duplicates(M, N=64, seed=3 * M + k)
+    db[:, ::5] = np.nan
+    q[:, ::7] = np.nan
+    with np.errstate(invalid="ignore"):
+        d2_n, idx_n = _stable_numpy_knn(q, db, k)
+    d2_t, idx_t = knn(torch.from_numpy(q), torch.from_numpy(db), k)
+    np.testing.assert_array_equal(idx_t.numpy(), idx_n)
+    assert int(idx_t.max()) < M and int(idx_t.min()) >= 0
+    np.testing.assert_array_equal(np.isnan(d2_t.numpy()), np.isnan(d2_n))
+    # a NaN query: every distance NaN, so the first k rows in index order
+    assert idx_t[0, 0].tolist() == list(range(k))
+
+
+def test_knn_nan_where_pallas_has_no_answer():
+    """knn_pallas's min over a column with a NaN is NaN and matches no
+    row, so it writes index M; the port writes the stable order, NaN
+    rows after every number."""
+    q, db = _on_duplicates(16, N=8, seed=0)
+    db[0, 3] = np.nan
+    _, idx_p = knn_pallas(jnp.asarray(q), jnp.asarray(db), 4, interpret=True)
+    assert bool((np.asarray(idx_p)[0] == 16).all())
+    _, idx_t = knn(torch.from_numpy(q), torch.from_numpy(db), 16)
+    assert bool((idx_t[0, :, -1] == 3).all())
+    assert int(idx_t.max()) < 16
