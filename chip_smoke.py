@@ -38,22 +38,27 @@ announced as ``phase=<name> start|done t=<seconds>``:
    iterations, solver stride 2), three times after one warm-up, with the
    launch counts set to 0 just before; each kernel must have launched
    (4 kNN per forward, 2 LM per solve) and every output must be finite.
-8. ``nn1``: the 1-NN kernel against its plain version at the ICP
-   path's launch shape (8 KITTI clouds, N=20480, each moved by its 64
+8. ``nn1``: the 1-NN kernel against its plain version, bitwise (indices
+   equal, distances equal, NaN where the plain version's are), at the
+   ICP path's launch shape (8 KITTI clouds, N=20480, each moved by its 64
    inits: 512 query sets against the 8 pseudo clouds of M=5120, 64 sets
-   per cloud), and at one init group (8 sets) against one cloud cut to
+   per cloud), at one init group (8 sets) against one cloud cut to
    M=5000 and padded back with 1e6 sentinel rows, as the harness pads,
-   and cut to M=5000 unpadded: indices equal, distances max abs err
-   reported (0 expected).  Times of the kernel and the plain version at
-   the launch shape, of the kernel and ``torch.cdist`` + ``torch.min`` at
-   one init group; then one ICP batch timed and under ``torch.profiler``
-   (1-NN vs SVD vs gathers).
-9. ``lm6``: the LM kernel's 6-DoF mode against its plain version at the
+   and cut to M=5000 unpadded, and on the kernel's hard cases: ties
+   across its tracked tiles, NaN rows and all-NaN queries, M=5001
+   against N=20479, databases too large for shared memory (streamed),
+   and D = 1, 5 and 8.  Each line names the launch plan.  Times of the
+   kernel and the plain version at the launch shape, of the kernel and
+   ``torch.cdist`` + ``torch.min`` at one init group; then one ICP batch
+   timed and under ``torch.profiler`` (1-NN vs SVD vs gathers).
+9. ``lm6``: the LM kernel's 6-DoF mode (its registers, shared memory and
+   local memory printed) against its plain version, bitwise, at the
    6-DoF solve's probe (N=5120, 64 inits, 8 iterations) and refine
-   (N=10240, 8 inits, 16 iterations) shapes, on the model's labels, on
-   those of the true pose, and from zero-angle inits (the first-order
-   rotation branch); the ``lm`` tolerances.  The points behind any
-   non-finite cost are printed.
+   (N=10240, 8 inits, 16 iterations) shapes at the plans they pick, on
+   the model's labels, on those of the true pose, and from zero-angle
+   inits (the first-order rotation branch), then on pairs of 40960
+   (shared memory) and 81920 points (device memory).  The points behind
+   any non-finite cost are printed.
 10. ``solve6``: forward -> argmax -> ``solve_frustum_batch(is_2d=False)``
     at the main path's settings, three steps after a warm-up: 2 launches
     of the 6-DoF LM per solve, finite poses, pairs/s, and the success
@@ -337,8 +342,14 @@ def knn_phase(torch, batch, cfg):
     return row
 
 
-def compare_lm(torch, tag, args, kw):
-    """Kernel vs plain LM on the same inputs; NaN where one has NaN."""
+def same_bits(torch, a, b) -> bool:
+    """Equal values, NaN where the other has NaN."""
+    return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def compare_lm(torch, tag, args, kw, bitwise: bool = False):
+    """Kernel vs plain LM on the same inputs; NaN where one has NaN; with
+    ``bitwise``, every cost and theta equal."""
     from deepi2p_tpu_torch.register import lm_solve_cuda, lm_solve_plain
 
     th_k, c_k = lm_solve_cuda(*args, **kw)
@@ -347,6 +358,11 @@ def compare_lm(torch, tag, args, kw):
     require(bool(torch.equal(torch.isnan(c_k), torch.isnan(c_p))
                  and torch.equal(torch.isnan(th_k), torch.isnan(th_p))),
             f"lm {tag}: NaN pattern differs from the plain version")
+    if bitwise:
+        require(same_bits(torch, c_k, c_p) and same_bits(torch, th_k, th_p),
+                f"lm {tag}: not bitwise equal to the plain version: costs "
+                f"{int((c_k != c_p).sum())}, theta entries "
+                f"{int((th_k != th_p).sum())} differ")
     fin = torch.isfinite(c_p)
     crel = float(((c_k - c_p).abs() / c_p.abs().clamp(min=1e-6))[fin]
                  .max()) if bool(fin.any()) else 0.0
@@ -361,15 +377,14 @@ def compare_lm(torch, tag, args, kw):
     return th_p, c_p, terr
 
 
-def lm_streamed_check(torch, batch, cfg):
-    """Pairs longer than the main path's, at the plan each one picks: two
-    Oxford clouds end to end (40960 points, clusters of 8 that keep them
-    in shared memory) and four (81920 points, more than 8 blocks keep, so
-    the kernel reads them from device memory in each sweep); held to the
-    plain version."""
+def lm_streamed_check(torch, batch, cfg, P: int = 4):
+    """Pairs longer than the main path's, at the plan each one picks in
+    mode P: two Oxford clouds end to end (40960 points, clusters of 8 that
+    keep them in shared memory) and four (81920 points, more than 8 blocks
+    keep, so the kernel reads them from device memory in each sweep); held
+    to the plain version (P=6: bitwise)."""
     from deepi2p_tpu_torch.register import initial_guess, sample_inits
-    from deepi2p_tpu_torch.register.frustum_cuda import (lm_p4_layout,
-                                                         lm_p4_plan)
+    from deepi2p_tpu_torch.register.frustum_cuda import lm_layout, lm_plan
 
     pc4 = batch["pc"][:4]
     for pc, resident in ((torch.cat([pc4[0:2], pc4[2:4]], dim=1), True),
@@ -377,10 +392,11 @@ def lm_streamed_check(torch, batch, cfg):
         pc = pc.contiguous()
         labels = torch.ones(pc.shape[:2], device=pc.device)
         ang, valid = initial_guess(pc, labels)
-        theta = sample_inits(torch.Generator().manual_seed(4), ang, 8)
+        theta = sample_inits(torch.Generator().manual_seed(4), ang, 8,
+                             is_2d=P == 4)
         B, N, _ = pc.shape
-        C, G, W = lm_p4_plan(B, N, theta.shape[1])
-        S, res = lm_p4_layout(N, C, W)
+        C, G, W = lm_plan(B, N, theta.shape[1], P)
+        S, res = lm_layout(N, C, W)
         where = ("shared memory" if res else
                  f"device memory: {W * S} points per block")
         require(res == resident, f"lm: the {N}-point pair's plan keeps its "
@@ -388,21 +404,20 @@ def lm_streamed_check(torch, batch, cfg):
         args = (pc, labels, valid.contiguous(),
                 batch["K"][:B].contiguous(), theta.contiguous(),
                 (-5.0, -0.1, -10.0), (5.0, 0.1, 10.0))
-        compare_lm(torch, f"long pair (B={B} N={N}, C={C} G={G} W={W}, "
-                   f"points in {where})", args,
-                   dict(H=cfg.img_H, W=cfg.img_W, max_iter=3))
+        compare_lm(torch, f"P={P} long pair (B={B} N={N}, C={C} G={G} "
+                   f"W={W}, points in {where})", args,
+                   dict(H=cfg.img_H, W=cfg.img_W, max_iter=3),
+                   bitwise=P == 6)
 
 
 def lm_bound(inputs, I: int, iters: int, P: int):
-    """(bound ms, bound_by) of one LM launch from its shapes: the ops
-    counted from the kernel per point, init and sweep, against each input
-    read once (points, labels, valid, K, theta0) and each output written
-    once (theta, cost)."""
-    from deepi2p_tpu_torch.register.frustum_cuda import (LM6_OPS_PER_POINT,
-                                                         LM_OPS_PER_POINT)
+    """(bound ms, bound_by) of one LM launch from its inputs: the ops this
+    launch's labels need (``lm_ops``: each point at its label's count, a
+    cost-only last sweep) against each input read once (points, labels,
+    valid, K, theta0) and each output written once (theta, cost)."""
+    from deepi2p_tpu_torch.register.frustum_cuda import lm_ops
     B, N, _ = inputs[0].shape
-    per_point = LM_OPS_PER_POINT if P == 4 else LM6_OPS_PER_POINT
-    ops = per_point * B * I * N * (iters + 1)
+    ops = lm_ops(inputs[1], I, iters, P)
     nbytes = 4 * (5 * B * N + 9 * B + 2 * P * B * I + B * I)
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = ops / PEAK_F32_OPS * 1e3
@@ -423,8 +438,8 @@ def lm_halving(torch, tag, pc, labels, K, *, H: int, W: int,
     from deepi2p_tpu_torch.register import (initial_guess, lm_solve_cuda,
                                             lm_solve_plain, sample_inits)
     from deepi2p_tpu_torch.register.frustum import I_BLK
-    from deepi2p_tpu_torch.register.frustum_cuda import (lm_p4_plan,
-                                                         lm_p4_smem_bytes)
+    from deepi2p_tpu_torch.register.frustum_cuda import (lm_plan,
+                                                         lm_smem_bytes)
 
     kw = dict(H=H, W=W)
     t_lb, t_ub = (-5.0, -0.1, -10.0), (5.0, 0.1, 10.0)
@@ -448,7 +463,7 @@ def lm_halving(torch, tag, pc, labels, K, *, H: int, W: int,
         args = (*inputs, K, theta, t_lb, t_ub)
         B, N, _ = inputs[0].shape
         I = theta.shape[1]
-        C, G, Wp = lm_p4_plan(B, N, I)
+        C, G, Wp = lm_plan(B, N, I, 4)
         th_p, c_p, terr = compare_lm(
             torch, f"{name} ({tag}, B={B} N={N} I={I} iters={iters}, "
             f"C={C} G={G} W={Wp})", args, dict(kw, max_iter=iters))
@@ -462,7 +477,7 @@ def lm_halving(torch, tag, pc, labels, K, *, H: int, W: int,
             log(f"lm {name} ({tag}): B={B} N={N} I={I} iters={iters} "
                 f"C={C} G={G} W={Wp}: grid {(-(-I // G)) * C}x{B} blocks "
                 f"of {32 * G * Wp} threads in clusters of {C}, "
-                f"{lm_p4_smem_bytes(N, C, Wp)} B dynamic shared memory per "
+                f"{lm_smem_bytes(N, C, Wp)} B dynamic shared memory per "
                 f"block: ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
                 f"bound_ms={row['bound_ms']:.5f}")
         rows.append(row)
@@ -473,17 +488,22 @@ def lm_halving(torch, tag, pc, labels, K, *, H: int, W: int,
     return rows
 
 
+def log_lm_attrs(P: int) -> None:
+    from deepi2p_tpu_torch.register.frustum_cuda import lm_attrs
+
+    attrs = lm_attrs(P)
+    log(f"lm: P={P} kernel {attrs['regs']} registers per thread, "
+        f"{attrs['static_smem']} B static shared memory, "
+        f"{attrs['spill_bytes']} B local memory per thread (spills and "
+        f"stack; the build's ptxas lines split them), at most "
+        f"{attrs['max_threads']} threads per block")
+
+
 def lm_phase(torch, batch, cfg, pred):
     """The 2-D LM kernel at the main path's probe and refine, on its own
     inputs (the seeded model's labels) and on the labels of the true
     pose; pairs too long for one cluster's shared memory."""
-    from deepi2p_tpu_torch.register.frustum_cuda import lm_p4_attrs
-
-    attrs = lm_p4_attrs()
-    log(f"lm: P=4 kernel {attrs['regs']} registers per thread, "
-        f"{attrs['static_smem']} B static shared memory, "
-        f"{attrs['spill_bytes']} B spilled per thread, at most "
-        f"{attrs['max_threads']} threads per block")
+    log_lm_attrs(4)
     pc, K = batch["pc"], batch["K"].contiguous()
     truth = frustum_labels(torch, pc, batch["P"], batch["K"], cfg.img_H,
                            cfg.img_W)
@@ -579,54 +599,121 @@ def kitti_eval_batch(torch, seed: int = 0):
                                 dense_depth=True)
 
 
+def check_nn1(torch, name, q, db):
+    """The 1-NN kernel against its plain version on one input, bitwise:
+    indices equal and in range, distances equal (NaN where the plain
+    version's are).  Returns the max abs error of the finite distances
+    (0) and the kernel's indices."""
+    from deepi2p_tpu_torch.ops import nn1_plain
+    from deepi2p_tpu_torch.ops.knn_cuda import nn1_card, nn1_cuda, nn1_plan
+
+    d2_k, idx_k = nn1_cuda(q, db)
+    d2_p, idx_p = nn1_plain(q, db)
+    torch.cuda.synchronize()
+    S, N, D = q.shape
+    B, M, _ = db.shape
+    require(bool(torch.equal(idx_k, idx_p)),
+            f"nn1 {name}: indices differ from the plain version at "
+            f"{int((idx_k != idx_p).sum())} places")
+    require(int(idx_k.min()) >= 0 and int(idx_k.max()) < M,
+            f"nn1 {name}: index out of range")
+    require(same_bits(torch, d2_k, d2_p),
+            f"nn1 {name}: distances differ from the plain version at "
+            f"{int((d2_k != d2_p).sum())} places")
+    fin = ~torch.isnan(d2_p)
+    err = float((d2_k - d2_p).abs()[fin].max()) if bool(fin.any()) else 0.0
+    card = nn1_card(q.device.index or 0, D, M)
+    plan = nn1_plan(S, N, M, D, B, card)
+    log(f"nn1 {name}: S={S} N={N} B={B} M={M} D={D}, {plan.qt} queries "
+        f"per thread, {plan.blocks} blocks per database, "
+        f"{'resident' if plan.resident else 'streamed'} ({card.sms} SMs, "
+        f"{card.block_smem} B per block, {card.per_sm} resident blocks "
+        f"per SM): indices equal, "
+        f"d2 bitwise equal (max abs err {err:.3g}), NaN distances "
+        f"{int((~fin).sum())}")
+    return err, idx_k
+
+
+def nn1_hard_cases(torch, group, cloud):
+    """Inputs at the 1-NN kernel's edges, made from one init group (8
+    query sets of 20480 points) and one pseudo cloud (5120 rows): ties
+    across its tracked tiles (each tile's last row repeated as the next
+    tile's first, the last row a copy of the first, queries on them); NaN
+    rows (row 0 all NaN) and NaN queries (every 101st all NaN); M = 5001
+    rows (a multiple of neither the 64-row tile nor the 8 queries of a
+    thread) against N = 20479 (8 sets: not a multiple of the 2048-query
+    chunk); 20000 rows, more than shared memory holds (streamed); and
+    D = 1 (integer coordinates: ties everywhere), 5 and 8 (the padded
+    row widths 4 and 8), resident and streamed."""
+    from deepi2p_tpu_torch.ops.knn_cuda import NN1_TRACK
+
+    gen = torch.Generator(device="cpu").manual_seed(11)
+    dev = group.device
+    M = cloud.shape[1]
+    nan = float("nan")
+    tie = cloud.clone()
+    edges = torch.arange(NN1_TRACK, M, NN1_TRACK, device=dev)
+    tie[:, edges] = tie[:, edges - 1]
+    tie[:, M - 1] = tie[:, 0]
+    on_ties = group.clone()
+    rows = torch.cat([edges - 1, torch.zeros(1, dtype=edges.dtype,
+                                             device=dev)])
+    on_ties[:, 1:1 + rows.numel()] = tie[0, rows]
+    nan_db = cloud.clone()
+    nan_db[:, 0] = nan
+    nan_db[:, ::97, 1] = nan
+    nan_q = group.clone()
+    nan_q[:, ::101] = nan
+    nan_q[:, 5::103, 2] = nan
+    jitter = torch.rand((4, M, 3), generator=gen).to(dev)
+    big = torch.cat([cloud[0] + 0.05 * jitter[j] for j in range(4)])[None]
+
+    def rand(*shape, ints=False):
+        x = torch.randn(shape, generator=gen) * 5.0
+        return (x.round() if ints else x).to(dev)
+
+    cases = [("ties across tiles", on_ties, tie),
+             ("NaN rows and queries", nan_q, nan_db),
+             ("ragged M=5001 N=20479", group[:, :20479], cloud[:, :5001]),
+             ("streamed M=20000", group[:2], big[:, :20000]),
+             ("D=1 integer ties", rand(4, 3000, 1, ints=True),
+              rand(2, 2500, 1, ints=True)),
+             ("D=5", rand(2, 3000, 5), rand(1, 2500, 5)),
+             ("D=8", rand(4, 3000, 8), rand(2, 2500, 8)),
+             ("D=8 streamed M=8000", rand(2, 3000, 8), rand(1, 8000, 8))]
+    return [(n, q.contiguous(), db.contiguous()) for n, q, db in cases]
+
+
 def nn1_phase(torch, raw):
     """The 1-NN kernel at the ICP path's launch shape (every pair x init of
     the evaluation batch against the pairs' pseudo clouds, as
     ``icp_batch`` calls it), at one init group against one cloud with
-    sentinel rows and a ragged last tile, and one ICP batch under
+    sentinel rows and a ragged last tile, on the hard cases of
+    :func:`nn1_hard_cases`, all bitwise; then one ICP batch under
     ``torch.profiler``."""
     from deepi2p_tpu_torch.ops import nn1_plain
     from deepi2p_tpu_torch.ops.knn_cuda import nn1_cuda
-    from deepi2p_tpu_torch.register.icp import (_draw_inits, _transform,
-                                                depth_to_pointcloud)
+    from deepi2p_tpu_torch.profile_nn1 import icp_launch
 
-    source = torch.from_numpy(raw["pc"]).cuda()
-    B, N, D = source.shape
-    target = torch.stack([depth_to_pointcloud(
-        torch.from_numpy(raw["depth"][b]).cuda(),
-        torch.from_numpy(raw["K"][b]).cuda(), stride=PSEUDO_STRIDE)
-        for b in range(B)]).contiguous()
-    M = target.shape[1]
     # the queries of an ICP iteration: every pair's 64 inits applied to
     # its source cloud, 64 query sets per pseudo cloud
-    I = -(-ICP_INITS // 8) * 8
-    P0 = _draw_inits(torch.Generator().manual_seed(5), (B, I),
-                     (5.0, 0.0, 10.0), math.pi).cuda()
-    q = _transform(source[:, None], P0[..., :3, :3], P0[..., :3, 3])
-    q = q.reshape(B * I, N, D).contiguous()
+    source, target, q = icp_launch(raw, -(-ICP_INITS // 8) * 8)
+    B, N, D = source.shape
+    M = target.shape[1]
     group = q[:NN1_SETS].contiguous()               # pair 0's first 8 inits
     padded = target[:1].clone()
     padded[:, 5000:] = 1e6                         # 5000 points + sentinels
     cases = [("icp launch", q, target), ("sentinel-padded", group, padded),
              ("M=5000", group, target[:1, :5000].contiguous())]
+    cases += nn1_hard_cases(torch, group, target[:1].contiguous())
     row = dict(max_abs_err=0.0, library_ms=None)
     for name, qq, db in cases:
-        d2_k, idx_k = nn1_cuda(qq, db)
-        d2_p, idx_p = nn1_plain(qq, db)
-        torch.cuda.synchronize()
-        require(bool(torch.equal(idx_k, idx_p)),
-                f"nn1 {name}: indices differ from the plain version at "
-                f"{int((idx_k != idx_p).sum())} places")
-        require(int(idx_k.min()) >= 0 and int(idx_k.max()) < db.shape[1],
-                f"nn1 {name}: index out of range")
+        err, idx = check_nn1(torch, name, qq, db)
         if name == "sentinel-padded":
-            require(int(idx_k.max()) < 5000,
+            require(int(idx.max()) < 5000,
                     "nn1: a sentinel row was chosen as a nearest neighbour")
-        err = float((d2_k - d2_p).abs().max())
-        log(f"nn1 {name}: S={qq.shape[0]} N={N} B={db.shape[0]} "
-            f"M={db.shape[1]} d2 max abs err {err:.3g}, indices equal")
         row["max_abs_err"] = max(row["max_abs_err"], err)
-        del d2_k, idx_k, d2_p, idx_p
+        del idx
 
     # times at the ICP launch shape; no single PyTorch call computes this
     # 1-NN there (cdist would hold 512 x 20480 x 5120 distances, 215 GB),
@@ -706,10 +793,16 @@ def icp_profile(torch, source, target):
 
 
 def lm6_phase(torch, batch, cfg, pred):
-    """The 6-DoF LM kernel at the 6-DoF solve's probe and refine shapes:
-    the model's labels, the true pose's, and zero-angle inits."""
+    """The 6-DoF LM kernel at the 6-DoF solve's probe and refine shapes,
+    at the plans they pick, bitwise: the model's labels, the true pose's,
+    and zero-angle inits; then pairs too long for the main path's plans,
+    resident and streamed."""
     from deepi2p_tpu_torch.register import (initial_guess, lm_solve_cuda,
                                             lm_solve_plain, sample_inits)
+    from deepi2p_tpu_torch.register.frustum_cuda import (lm_plan,
+                                                         lm_smem_bytes)
+
+    log_lm_attrs(6)
 
     kw = dict(H=cfg.img_H, W=cfg.img_W)
     t_lb, t_ub = (-5.0, -0.1, -10.0), (5.0, 0.1, 10.0)
@@ -738,9 +831,14 @@ def lm6_phase(torch, batch, cfg, pred):
         for name, inputs, iters in (("probe", probe, PROBE_ITER),
                                     ("refine", full, MAX_ITER - PROBE_ITER)):
             args = (*inputs, K, theta, t_lb, t_ub)
+            B, N, _ = inputs[0].shape
+            C, G, Wp = lm_plan(B, N, theta.shape[1], 6)
             th_p, c_p, terr = compare_lm(
-                torch, f"6-DoF {name} ({lab_name} labels)", args,
-                dict(kw, max_iter=iters))
+                torch, f"6-DoF {name} ({lab_name} labels, B={B} N={N} "
+                f"I={theta.shape[1]} iters={iters}, C={C} G={G} W={Wp}: "
+                f"blocks of {32 * G * Wp} threads in clusters of {C}, "
+                f"{lm_smem_bytes(N, C, Wp)} B dynamic shared memory per "
+                f"block)", args, dict(kw, max_iter=iters), bitwise=True)
             nonfinite_cost_points(torch, f"6-DoF {name} ({lab_name} "
                                   f"labels)", args, c_p, **kw)
             row["max_abs_err"] = max(row["max_abs_err"], terr)
@@ -749,7 +847,6 @@ def lm6_phase(torch, batch, cfg, pred):
                     *args, max_iter=iters, **kw), 5)
                 plain_ms = cuda_ms(torch, lambda: lm_solve_plain(
                     *args, max_iter=iters, **kw), 1)
-                B, N, _ = inputs[0].shape
                 I = theta.shape[1]
                 bound, row["bound_by"] = lm_bound(inputs, I, iters, 6)
                 log(f"lm6 {name}: B={B} N={N} I={I} iters={iters} "
@@ -762,6 +859,7 @@ def lm6_phase(torch, batch, cfg, pred):
                 top = torch.argsort(c_p, dim=1, stable=True)[:, :keep]
                 theta = torch.gather(
                     th_p, 1, top[:, :, None].expand(-1, -1, 6)).contiguous()
+    lm_streamed_check(torch, batch, cfg, P=6)
     return row
 
 

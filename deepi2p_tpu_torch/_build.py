@@ -24,12 +24,13 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import List
+from typing import Dict, List
 
 PKG_DIR = Path(__file__).resolve().parent
 SRC_DIR = PKG_DIR / "csrc"
@@ -55,26 +56,36 @@ SIGNATURES = {
     "knn_path": [_I, _I],
     # pts, labels, valid, kparams, theta0, theta_out, cost_out,
     # B, N, I, max_iter, H1, W1, lb0, lb1, lb2, ub0, ub1, ub2,
-    # C (blocks per cluster), G (inits per block), W (warps per init),
-    # S (points per virtual slice), resident (0/1: points in shared
-    # memory), stream
-    "lm_solve_p4_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                        _F, _F, _F, _F, _F, _F, _F, _F, _I, _I, _I, _I, _I,
-                        _P],
-    # out (4 ints): the P = 4 kernel's registers, static shared memory,
-    # spill bytes per thread, most threads per block
-    "lm_p4_func_attrs": [_P],
-    # the 6-DoF mode, as the 2-D one without the layout (theta0 and
-    # theta_out (B, I, 6))
-    "lm_solve_p6_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                        _F, _F, _F, _F, _F, _F, _F, _F, _P],
-    # q, db, d2, idx, S (query sets), N, M, D, Q (sets per database), stream
-    "nn1_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # P (4: 2-D, 6: 6-DoF), C (blocks per cluster), G (inits per block),
+    # W (warps per init), S (points per virtual slice), resident (0/1:
+    # points in shared memory), stream
+    "lm_solve_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                     _F, _F, _F, _F, _F, _F, _F, _F, _I, _I, _I, _I, _I, _I,
+                     _P],
+    # P, out (4 ints): that mode's kernel's registers, static shared
+    # memory, spill bytes per thread, most threads per block
+    "lm_func_attrs": [_I, _P],
+    # q, db, d2, idx, S (query sets), N, M, D, Q (sets per database),
+    # queries per thread, blocks per database, resident (0/1: the database
+    # in shared memory), stream
+    "nn1_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # D, M, out (3 ints): the current card's SMs, the most shared memory
+    # of one block, resident 1-NN blocks per SM for that database
+    "nn1_limits": [_I, _I, _P],
 }
 
 
 def sources() -> List[Path]:
     return sorted(SRC_DIR.glob("*.cu"))
+
+
+def constants(source: str) -> Dict[str, int]:
+    """The ``constexpr int kName = <number>;`` constants of
+    ``csrc/<source>``: the kernel's own sizes, for the wrapper and the
+    tests that must agree with them (no build needed)."""
+    text = (SRC_DIR / source).read_text()
+    return {m.group(1): int(m.group(2)) for m in
+            re.finditer(r"constexpr int (k\w+) = (\d+);", text)}
 
 
 def library_path(srcs=None) -> Path:

@@ -21,56 +21,52 @@
 // the point's valid factor, and the Jacobian, which the Pallas kernel gets
 // from jax.linearize, is derived by hand (register/frustum_cuda.py's
 // docstring has the derivation): R and the three dR/dr_j depend on theta
-// only, so thread 0 computes them once per (init, sweep) into shared
-// memory (rot6), and each point needs dp/dr_j = (dR/dr_j) x and
-// dp/dt_j = e_j.
+// only, so they are computed once per (init, sweep) (rot6), and each point
+// needs dp/dr_j = (dR/dr_j) x and dp/dt_j = e_j.
 //
 // What bounds it on the H100: the points of one pair (N x 5 floats, at
 // most a few hundred KB) are needed once per sweep by every init of that
-// pair, so device memory moves only ~5N floats per pair.  The work is ~150
-// (P = 4) or ~430 (P = 6) f32 operations per point per init per sweep
-// (LM_OPS_PER_POINT and LM6_OPS_PER_POINT in register/frustum_cuda.py),
-// (max_iter + 1) sweeps: operations bound by a wide margin.  With
+// pair, so device memory moves only ~5N floats per pair.  The work per
+// point, init and sweep is 134 (P = 4) or 350 (P = 6) f32 operations for
+// an inside-labelled point, 102 or 222 for an outside one, and 30-47 in
+// the cost-only last sweep (LM_OPS in register/frustum_cuda.py), over
+// max_iter + 1 sweeps: operations bound by a wide margin.  With
 // contraction off (the build's -fmad=false, which lets the plain version
 // repeat the rounding) every operation is one instruction, so ~2x the
 // bound, which counts an FMA as two, is the floor of this arithmetic.
 //
-// Design, P = 4 (lm_p4_kernel, the main path's mode): one thread-block
+// Design, both modes (one kernel body, lm_kernel<P>): one thread-block
 // cluster per (pair, group of G <= 8 inits), C blocks of G x W warps.
 // The first design (one 256-thread block per (pair, init)) streamed every
 // point from L2 once per init and sweep as 12-byte AoS loads, evaluated
 // both labels' rows for every point, and idled 255 threads while thread 0
-// combined the warps and ran the Cholesky.  Here:
+// combined the warps, ran the rotation (P = 6) and the Cholesky.  Here:
 // * each block copies its points into shared memory once per launch, each
 //   warp's slice with its inside-labelled points first, so that a warp
-//   evaluates only one label's rows (point_terms4<1> or <0>), about 190
-//   instructions per point instead of 260;
+//   evaluates only one label's rows (point_terms4<1> or <0>,
+//   add_point6<1> or <0>): an outside-labelled point has one residual row,
+//   so in the 6-DoF mode its H terms are single products;
 // * each init's points are cut into C W virtual slices, one per warp of
 //   the init in the cluster, and the partial sums meet through
-//   distributed shared memory after one cluster barrier per sweep; every
-//   warp then runs its init's Cholesky in all its lanes;
-// * the wrapper picks C, G and W (lm_p4_plan) for an even spread, and the
-//   slice size S and the residency (lm_p4_layout), which this file only
+//   distributed shared memory after one cluster barrier per sweep
+//   (cluster_sum); every warp then runs its init's rotation and Cholesky
+//   in all its lanes;
+// * the wrapper picks C, G and W (lm_plan) for an even spread, and the
+//   slice size S and the residency (lm_layout), which this file only
 //   checks: the H100 places clusters of 4 or 8 blocks on only 124 of its
 //   132 SMs, and the per-sweep barrier makes every cluster wait for its
-//   busiest SM, so the main path's refine runs one 16-warp block per SM
-//   in clusters of 2;
+//   busiest SM, so the main path's launches run in clusters of 2.  A
+//   6-DoF lane holds 28 running sums and the rotation's 36 terms, so its
+//   blocks have at most 8 warps (the 2-D mode's 16);
 // * the last sweep of a solve sums the cost alone: no step uses its H and
-//   g.
+//   g;
+// * the H and g of the last accepted sweep stay in registers (P = 4) or
+//   in the warp's row of shared memory (P = 6, Carried<P>).
 // The sum order: each lane's points of its slice in turn, the butterfly
 // over the 32 lanes, then the C W slices in order; the plain version
-// repeats it, the label partition included.
-//
-// Design, P = 6 (lm_p6_kernel): one block of 256 threads per (pair, init),
-// B*I blocks.  Threads stride over the points and keep the 28 sums (H
-// terms, g terms, the cost) in registers; a warp-shuffle butterfly and a
-// shared-memory pass over the 8 warps combine them.  Thread 0 holds the LM
-// state, does the 6x6 Cholesky, the accept/reject and the lambda update,
-// and broadcasts the next proposal through shared memory.  Loop counts are
-// fixed (max_iter) and every __syncthreads() sits outside any branch, so
-// all threads reach each one.  The order of every sum is fixed as well, and
-// the plain PyTorch version (`lm_solve_plain`) repeats it; with FMA
-// contraction off the two agree to rounding.
+// repeats it, the label partition included.  The order of every sum is
+// fixed, loop counts are fixed (max_iter), and every barrier is reached
+// by all threads of the cluster.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -78,8 +74,17 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+namespace cg = cooperative_groups;
+
+// Both modes: clusters of at most kLmMaxCluster blocks (the portable
+// limit); a block keeps at most kLmMaxTile points in shared memory, as
+// float4 rows (x, y, z, valid) beside the labels.
+constexpr int kLmMaxCluster = 8;
+constexpr int kLmMaxTile = 5120;
+constexpr int kLmRowBytes = 20;
+constexpr int kP4MaxWarps = 16;     // G x W per block, P = 4
+constexpr int kQ4 = 15;             // the 2-D sweep's sums
+constexpr int kP6MaxWarps = 8;      // G x W per block, P = 6
 // the 6-DoF sweep's sums: the 21 upper H terms (row by row, H00 H01 ...),
 // the 6 g terms, the cost
 constexpr int kH6 = 21;
@@ -317,33 +322,6 @@ __device__ __forceinline__ void sweep_points4(
   }
 }
 
-// Residual hinges, their signs and the outside gate of a projected point
-// (6-DoF mode; the 2-D mode has the same expressions inline above).
-struct Parts {
-  float r0_in, s0, r1_in, s1, r2_in, s2, r_out, sxd, syd;
-  bool on;  // the outside gate
-};
-
-__device__ __forceinline__ Parts residual_parts(float px, float py, float p2,
-                                                const Cam& k) {
-  Parts q;
-  q.r0_in = maxn(-px, 0.0f) + maxn(px - k.W1, 0.0f);
-  q.s0 = (px < 0.0f ? -1.0f : 0.0f) + (px > k.W1 ? 1.0f : 0.0f);
-  q.r1_in = maxn(-py, 0.0f) + maxn(py - k.H1, 0.0f);
-  q.s1 = (py < 0.0f ? -1.0f : 0.0f) + (py > k.H1 ? 1.0f : 0.0f);
-  q.r2_in = maxn(-p2, 0.0f) * 100.0f;
-  q.s2 = p2 < 0.0f ? -100.0f : 0.0f;
-  const float hw = k.W1 * 0.5f, hh = k.H1 * 0.5f;
-  const float xd = hw - fabsf(px - hw);
-  const float yd = hh - fabsf(py - hh);
-  q.on = p2 > 0.0f && xd > 0.0f && yd > 0.0f;
-  const float gate = q.on ? 1.0f : 0.0f;
-  q.r_out = q.on ? xd + yd : 0.0f;
-  q.sxd = (-sgn(px - hw)) * gate;
-  q.syd = (-sgn(py - hh)) * gate;
-  return q;
-}
-
 // Entry (a, b) of [v]x.
 __device__ __forceinline__ float skew(const float v[3], int a, int b) {
   if (a == 0) return b == 1 ? -v[2] : v[1];
@@ -351,9 +329,9 @@ __device__ __forceinline__ float skew(const float v[3], int a, int b) {
   return b == 0 ? -v[1] : v[0];
 }
 
-// R (row-major) and dR/dr_j (j = 0..2) of the angle-axis r, into out[36]:
-// the arithmetic of the plain version's _rot6, expression for expression.
-__device__ void rot6(const float r[3], float* out) {
+// R (row-major) and dR/dr_j (j = 0..2) of the angle-axis r: the
+// arithmetic of the plain version's _rot6, expression for expression.
+__device__ __forceinline__ void rot6(const float r[3], float (&out)[kRot]) {
   const float t2 = r[0] * r[0] + r[1] * r[1] + r[2] * r[2];
   const float th = sqrtf(t2 + 1e-24f);
   const float s = sinf(th), c = cosf(th);
@@ -368,10 +346,13 @@ __device__ void rot6(const float r[3], float* out) {
                        k[2] * k[1] * oc + k[0] * s, c + k[2] * k[2] * oc};
   const float Rs[9] = {1.0f, -r[2], r[1], r[2], 1.0f, -r[0],
                        -r[1], r[0], 1.0f};
+#pragma unroll
   for (int q = 0; q < 9; ++q) out[q] = big ? Rb[q] : Rs[q];
+#pragma unroll
   for (int j = 0; j < 3; ++j) {
     const float dth = r[j] / th;
     float dk[3];
+#pragma unroll
     for (int i = 0; i < 3; ++i)
       dk[i] = ((i == j ? 1.0f : 0.0f) - k[i] * k[j]) / th;
     const float dc = -(s * dth);
@@ -379,7 +360,9 @@ __device__ void rot6(const float r[3], float* out) {
     const float ds = c * dth;
     float ej[3] = {0.0f, 0.0f, 0.0f};
     ej[j] = 1.0f;
+#pragma unroll
     for (int a = 0; a < 3; ++a) {
+#pragma unroll
       for (int b = 0; b < 3; ++b) {
         float v = doc * (k[a] * k[b]) + oc * (dk[a] * k[b] + k[a] * dk[b]);
         float small;
@@ -396,113 +379,154 @@ __device__ void rot6(const float r[3], float* out) {
   }
 }
 
-// The 28 per-point contributions at theta, 6-DoF mode; rot holds R and
-// dR/dr_j of theta's rotation, t its translation.
-__device__ __forceinline__ void point_terms6(const float* rot,
-                                             const float t[3], float x,
-                                             float y, float z, float lab,
-                                             float val, const Cam& k,
-                                             float out[28]) {
-  const float* R = rot;
-  const float p0 = R[0] * x + R[1] * y + R[2] * z + t[0];
-  const float p1 = R[3] * x + R[4] * y + R[5] * z + t[1];
-  const float p2 = R[6] * x + R[7] * y + R[8] * z + t[2];
+// Add one point to the 6-DoF sweep's 28 sums (FULL) or to the cost alone,
+// for a point labelled inside (LAB = 1) or outside (LAB = 0); rot holds R
+// and dR/dr_j of theta's rotation, t its translation.  LAB = 1 is the
+// general expression with the label fixed (no product is left out: a
+// structural zero such as dpx[4] may meet an inf at p2 = 0, and the NaN
+// that gives must stay).  LAB = 0 has one residual row, r0 = r_out val:
+// the outside rows r1, r2 and J1., J2. are exactly 0 (the plain version
+// makes them so), so the H terms are w J0i J0j and the g terms w J0i r0;
+// J0_3 and J0_4 leave out the products with dpy[3] = 0 and dpx[4] = 0 of
+// finite signs.  What is left out is a +-0 term, which can only turn a -0
+// point term into +0 or back; the sums start at +0 and are never -0, and
+// x + (+0) = x + (-0) = x for every other x (NaN and inf included), so
+// the sums are bitwise those of the general expression.
+template <int LAB, bool FULL>
+__device__ __forceinline__ void add_point6(const float (&rot)[kRot],
+                                           const float (&t)[3], float x,
+                                           float y, float z, float val,
+                                           const Cam& k, float (&acc)[kQ6]) {
+  const float p0 = rot[0] * x + rot[1] * y + rot[2] * z + t[0];
+  const float p1 = rot[3] * x + rot[4] * y + rot[5] * z + t[1];
+  const float p2 = rot[6] * x + rot[7] * y + rot[8] * z + t[2];
   const float inv_z = 1.0f / p2;
   const float px = k.fx * p0 * inv_z + k.cx;
   const float py = k.fy * p1 * inv_z + k.cy;
-  const float a = k.fx * inv_z;
-  const float b = k.fy * inv_z;
-  const float u = p0 * inv_z;
-  const float v = p1 * inv_z;
-  float dpx[6], dpy[6], dz[6];
+  float sb;
+  if constexpr (LAB == 1) {
+    const float r0 = (relu_n(-px) + relu_n(px - k.W1)) * val;
+    const float r1 = (relu_n(-py) + relu_n(py - k.H1)) * val;
+    const float r2 = (relu_n(-p2) * 100.0f) * val;
+    sb = r0 * r0 + r1 * r1 + r2 * r2;
+    if constexpr (FULL) {
+      const float s0 = (px < 0.0f ? -1.0f : 0.0f) + (px > k.W1 ? 1.0f : 0.0f);
+      const float s1 = (py < 0.0f ? -1.0f : 0.0f) + (py > k.H1 ? 1.0f : 0.0f);
+      const float s2 = p2 < 0.0f ? -100.0f : 0.0f;
+      const float a = k.fx * inv_z;
+      const float b = k.fy * inv_z;
+      const float u = p0 * inv_z;
+      const float v = p1 * inv_z;
+      float dpx[6], dpy[6], dz[6];
 #pragma unroll
-  for (int j = 0; j < 3; ++j) {
-    const float* D = rot + 9 + 9 * j;
-    const float q0 = D[0] * x + D[1] * y + D[2] * z;
-    const float q1 = D[3] * x + D[4] * y + D[5] * z;
-    const float q2 = D[6] * x + D[7] * y + D[8] * z;
-    dpx[j] = a * (q0 - u * q2);
-    dpy[j] = b * (q1 - v * q2);
-    dz[j] = q2;
+      for (int j = 0; j < 3; ++j) {
+        const float* D = rot + 9 + 9 * j;
+        const float q0 = D[0] * x + D[1] * y + D[2] * z;
+        const float q1 = D[3] * x + D[4] * y + D[5] * z;
+        const float q2 = D[6] * x + D[7] * y + D[8] * z;
+        dpx[j] = a * (q0 - u * q2);
+        dpy[j] = b * (q1 - v * q2);
+        dz[j] = q2;
+      }
+      dpx[3] = a;
+      dpy[3] = 0.0f;
+      dz[3] = 0.0f;
+      dpx[4] = 0.0f;
+      dpy[4] = b;
+      dz[4] = 0.0f;
+      dpx[5] = (-a) * u;
+      dpy[5] = (-b) * v;
+      dz[5] = 1.0f;
+      float J0[6], J1[6], J2[6];
+#pragma unroll
+      for (int j = 0; j < 6; ++j) {
+        J0[j] = (s0 * dpx[j]) * val;
+        J1[j] = (s1 * dpy[j]) * val;
+        J2[j] = (s2 * dz[j]) * val;
+      }
+      const float w = val / (1.0f + sb);
+      int o = 0;
+#pragma unroll
+      for (int i = 0; i < 6; ++i) {
+#pragma unroll
+        for (int j = i; j < 6; ++j, ++o)
+          acc[o] = acc[o] + w * (J0[i] * J0[j] + J1[i] * J1[j] + J2[i] * J2[j]);
+      }
+#pragma unroll
+      for (int i = 0; i < 6; ++i)
+        acc[kH6 + i] = acc[kH6 + i] + w * (J0[i] * r0 + J1[i] * r1 + J2[i] * r2);
+    }
+  } else {
+    const float hw = k.W1 * 0.5f, hh = k.H1 * 0.5f;
+    const float xd = hw - fabsf(px - hw);
+    const float yd = hh - fabsf(py - hh);
+    const bool on = p2 > 0.0f && xd > 0.0f && yd > 0.0f;
+    const float r0 = (on ? xd + yd : 0.0f) * val;  // a select: 0 at p2 = 0
+    sb = r0 * r0;
+    if constexpr (FULL) {
+      // the gate is 1 wherever these are used
+      const float sxd = -sgn(px - hw), syd = -sgn(py - hh);
+      const float a = k.fx * inv_z;
+      const float b = k.fy * inv_z;
+      const float u = p0 * inv_z;
+      const float v = p1 * inv_z;
+      float J0[6];
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        const float* D = rot + 9 + 9 * j;
+        const float q0 = D[0] * x + D[1] * y + D[2] * z;
+        const float q1 = D[3] * x + D[4] * y + D[5] * z;
+        const float q2 = D[6] * x + D[7] * y + D[8] * z;
+        const float dpx = a * (q0 - u * q2);
+        const float dpy = b * (q1 - v * q2);
+        J0[j] = (on ? sxd * dpx + syd * dpy : 0.0f) * val;
+      }
+      J0[3] = (on ? sxd * a : 0.0f) * val;
+      J0[4] = (on ? syd * b : 0.0f) * val;
+      J0[5] = (on ? sxd * ((-a) * u) + syd * ((-b) * v) : 0.0f) * val;
+      const float w = val / (1.0f + sb);
+      int o = 0;
+#pragma unroll
+      for (int i = 0; i < 6; ++i) {
+#pragma unroll
+        for (int j = i; j < 6; ++j, ++o) acc[o] = acc[o] + w * (J0[i] * J0[j]);
+      }
+#pragma unroll
+      for (int i = 0; i < 6; ++i)
+        acc[kH6 + i] = acc[kH6 + i] + w * (J0[i] * r0);
+    }
   }
-  dpx[3] = a;
-  dpy[3] = 0.0f;
-  dz[3] = 0.0f;
-  dpx[4] = 0.0f;
-  dpy[4] = b;
-  dz[4] = 0.0f;
-  dpx[5] = (-a) * u;
-  dpy[5] = (-b) * v;
-  dz[5] = 1.0f;
-
-  const Parts q = residual_parts(px, py, p2, k);
-  const bool in = lab > 0.5f;
-  const float r0 = (in ? q.r0_in : q.r_out) * val;
-  const float r1 = (in ? q.r1_in : 0.0f) * val;
-  const float r2 = (in ? q.r2_in : 0.0f) * val;
-  float J0[6], J1[6], J2[6];
-#pragma unroll
-  for (int j = 0; j < 6; ++j) {
-    J0[j] = (in ? q.s0 * dpx[j]
-                : (q.on ? q.sxd * dpx[j] + q.syd * dpy[j] : 0.0f)) * val;
-    J1[j] = (in ? q.s1 * dpy[j] : 0.0f) * val;
-    J2[j] = (in ? q.s2 * dz[j] : 0.0f) * val;
-  }
-  const float sb = r0 * r0 + r1 * r1 + r2 * r2;
-  const float w = val / (1.0f + sb);
-  int o = 0;
-#pragma unroll
-  for (int i = 0; i < 6; ++i) {
-#pragma unroll
-    for (int j = i; j < 6; ++j)
-      out[o++] = w * (J0[i] * J0[j] + J1[i] * J1[j] + J2[i] * J2[j]);
-  }
-#pragma unroll
-  for (int i = 0; i < 6; ++i)
-    out[21 + i] = w * (J0[i] * r0 + J1[i] * r1 + J2[i] * r2);
-  out[27] = 0.5f * log1pf(sb) * val;
+  acc[kQ6 - 1] = acc[kQ6 - 1] + 0.5f * log1pf(sb) * val;
 }
 
-// One 6-DoF sweep at the theta in shared memory and its rotation in
-// s_rot; thread 0 gets the totals.  Contains one __syncthreads(), reached
-// by all threads.
-__device__ void sweep6(const float* __restrict__ pts,
-                       const float* __restrict__ lab,
-                       const float* __restrict__ val, int N, const Cam& k,
-                       const float* s_theta, const float* s_rot,
-                       float (*s_part)[kQ6], float tot[kQ6]) {
-  float acc[kQ6];
-#pragma unroll
-  for (int q = 0; q < kQ6; ++q) acc[q] = 0.0f;
-  float rot[kRot];
-#pragma unroll
-  for (int q = 0; q < kRot; ++q) rot[q] = s_rot[q];
-  const float tr[3] = {s_theta[3], s_theta[4], s_theta[5]};
-  for (int n = threadIdx.x; n < N; n += kThreads) {
-    float t[kQ6];
-    point_terms6(rot, tr, pts[3 * n], pts[3 * n + 1], pts[3 * n + 2],
-                 lab[n], val[n], k, t);
-#pragma unroll
-    for (int q = 0; q < kQ6; ++q) acc[q] = acc[q] + t[q];
-  }
-#pragma unroll
-  for (int off = 16; off >= 1; off >>= 1) {
-#pragma unroll
-    for (int q = 0; q < kQ6; ++q)
-      acc[q] = acc[q] + __shfl_xor_sync(0xffffffffu, acc[q], off);
-  }
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) {
-#pragma unroll
-    for (int q = 0; q < kQ6; ++q) s_part[warp][q] = acc[q];
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int q = 0; q < kQ6; ++q) {
-      float v = s_part[0][q];
-      for (int w = 1; w < kWarps; ++w) v = v + s_part[w][q];
-      tot[q] = v;
+// A warp's points of one 6-DoF sweep: from shared memory, where its slice
+// holds the inside-labelled points first, so that one loop runs the
+// inside terms and a second the outside ones, each lane's points still in
+// index order; or from device memory in index order, the label read per
+// point.
+template <bool RESIDENT, bool FULL>
+__device__ __forceinline__ void sweep_points6(
+    const float (&rot)[kRot], const float (&t)[3], const Cam& k, int lane,
+    int len, const float4* my_pts, const float* my_lab, const float* Pp,
+    const float* lab, const float* val, int v0, float (&acc)[kQ6]) {
+  if constexpr (RESIDENT) {
+    int p = lane;
+    for (; p < len && my_lab[p] > 0.5f; p += 32) {
+      const float4 r = my_pts[p];
+      add_point6<1, FULL>(rot, t, r.x, r.y, r.z, r.w, k, acc);
+    }
+    for (; p < len; p += 32) {
+      const float4 r = my_pts[p];
+      add_point6<0, FULL>(rot, t, r.x, r.y, r.z, r.w, k, acc);
+    }
+  } else {
+    for (int p = v0 + lane; p < v0 + len; p += 32) {
+      const float x = Pp[3 * p], y = Pp[3 * p + 1], z = Pp[3 * p + 2];
+      if (lab[p] > 0.5f) {
+        add_point6<1, FULL>(rot, t, x, y, z, val[p], k, acc);
+      } else {
+        add_point6<0, FULL>(rot, t, x, y, z, val[p], k, acc);
+      }
     }
   }
 }
@@ -553,78 +577,10 @@ __device__ __forceinline__ void chol_solve(const float* H, const float* g,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-lm_p6_kernel(const float* __restrict__ pts, const float* __restrict__ labels,
-             const float* __restrict__ valid,
-             const float* __restrict__ kparams,
-             const float* __restrict__ theta0, float* __restrict__ theta_out,
-             float* __restrict__ cost_out, int N, int I, int max_iter,
-             float H1, float W1, float lb0, float lb1, float lb2, float ub0,
-             float ub1, float ub2) {
-  __shared__ float s_theta[6];
-  __shared__ float s_rot[kRot];
-  __shared__ float s_part[kWarps][kQ6];
-  const int i = blockIdx.x, b = blockIdx.y;
-  const float* Pp = pts + (size_t)b * N * 3;
-  const float* lab = labels + (size_t)b * N;
-  const float* val = valid + (size_t)b * N;
-  const Cam k{kparams[4 * b + 0], kparams[4 * b + 1], kparams[4 * b + 2],
-              kparams[4 * b + 3], H1, W1};
-  const float lb[3] = {lb0, lb1, lb2}, ub[3] = {ub0, ub1, ub2};
-
-  // LM state, meaningful in thread 0 only; theta = [r (3), t (3)]
-  float theta[6], Hm[kH6], g[6], cost = 0.0f, lam = 1e-3f;
-  float tot[kQ6];
-  if (threadIdx.x == 0) {
-    const float* t0 = theta0 + ((size_t)b * I + i) * 6;
-    for (int q = 0; q < 3; ++q) theta[q] = t0[q];
-    for (int q = 0; q < 3; ++q) theta[3 + q] = clipn(t0[3 + q], lb[q], ub[q]);
-    for (int q = 0; q < 6; ++q) s_theta[q] = theta[q];
-    rot6(theta, s_rot);
-  }
-  __syncthreads();
-  sweep6(Pp, lab, val, N, k, s_theta, s_rot, s_part, tot);
-  if (threadIdx.x == 0) {
-    for (int q = 0; q < kH6; ++q) Hm[q] = tot[q];
-    for (int q = 0; q < 6; ++q) g[q] = tot[kH6 + q];
-    cost = tot[kQ6 - 1];
-  }
-
-  for (int it = 0; it < max_iter; ++it) {
-    float prop[6];
-    if (threadIdx.x == 0) {
-      float delta[6];
-      chol_solve<6>(Hm, g, lam, delta);
-      for (int q = 0; q < 3; ++q) prop[q] = theta[q] - delta[q];
-      for (int q = 0; q < 3; ++q)
-        prop[3 + q] = clipn(theta[3 + q] - delta[3 + q], lb[q], ub[q]);
-      for (int q = 0; q < 6; ++q) s_theta[q] = prop[q];
-      rot6(prop, s_rot);
-    }
-    __syncthreads();
-    sweep6(Pp, lab, val, N, k, s_theta, s_rot, s_part, tot);
-    if (threadIdx.x == 0) {
-      const bool accept = tot[kQ6 - 1] < cost;
-      if (accept) {
-        for (int q = 0; q < 6; ++q) theta[q] = prop[q];
-        for (int q = 0; q < kH6; ++q) Hm[q] = tot[q];
-        for (int q = 0; q < 6; ++q) g[q] = tot[kH6 + q];
-        cost = tot[kQ6 - 1];
-      }
-      lam = fminf(fmaxf(accept ? lam / 3.0f : lam * 3.0f, 1e-9f), 1e9f);
-    }
-  }
-  if (threadIdx.x == 0) {
-    float* to = theta_out + ((size_t)b * I + i) * 6;
-    for (int q = 0; q < 6; ++q) to[q] = theta[q];
-    cost_out[(size_t)b * I + i] = cost;
-  }
-}
-
 // ---------------------------------------------------------------------------
-// The 2-D mode (P = 4).  Warp (g, w) of block r of a cluster sweeps virtual
-// slice r W + w (S points; the last slices short or empty) for init
-// group * G + g.  Each warp's butterfly leaves its 15 partial sums in
+// The cluster layout, both modes.  Warp (g, w) of block r of a cluster
+// sweeps virtual slice r W + w (S points; the last slices short or empty)
+// for init group * G + g.  Each warp's butterfly leaves its partial sums in
 // shared memory; after one cluster barrier every warp sums the C W
 // partials of its init in slice order (its own block's through shared
 // memory, the others' through distributed shared memory), so all warps of
@@ -633,14 +589,10 @@ lm_p6_kernel(const float* __restrict__ pts, const float* __restrict__ labels,
 // suffices: a block writes a buffer again two sweeps later, after the
 // barrier that every block reaches only once it has read that buffer.
 // RESIDENT (the wrapper's choice; a block's W S points then fit
-// kP4MaxTile): the points live in shared memory as float4 rows (x, y, z, valid) beside the labels, each
-// slice partitioned by label; otherwise the warps read them from device
-// memory in index order and evaluate the label at run time.
-constexpr int kP4MaxWarps = 16;     // G x W per block
-constexpr int kP4MaxCluster = 8;    // blocks per cluster (portable limit)
-constexpr int kP4MaxTile = 5120;    // most points a block keeps in shared memory
-constexpr int kQ4 = 15;
-constexpr int kP4RowBytes = 20;     // float4 row + label
+// kLmMaxTile): the points live in shared memory as float4 rows (x, y, z,
+// valid) beside the labels, each slice partitioned by label; otherwise the
+// warps read them from device memory in index order and evaluate the label
+// at run time.
 
 // One warp copies points [off, off + n) into s_pts / s_lab, inside-labelled
 // points first, each group in index order.
@@ -675,19 +627,122 @@ __device__ __forceinline__ void stage_partitioned(
   }
 }
 
-template <bool RESIDENT>
-__global__ void __launch_bounds__(kP4MaxWarps * 32)
-lm_p4_kernel(const float* __restrict__ pts, const float* __restrict__ labels,
-             const float* __restrict__ valid,
-             const float* __restrict__ kparams,
-             const float* __restrict__ theta0, float* __restrict__ theta_out,
-             float* __restrict__ cost_out, int N, int I, int max_iter,
-             float H1, float W1, float lb0, float lb1, float lb2, float ub0,
-             float ub1, float ub2, int C, int G, int W, int S) {
-  namespace cg = cooperative_groups;
+// The butterfly of a warp's KQ partial sums over its lanes into row x of
+// this sweep's partials (rows of STRIDE floats), one cluster barrier, then
+// the sums of rows first .. first + W - 1 of every block of the cluster in
+// slice order: lane q < KQ returns term q's total over the init's C W
+// slices (the other lanes 0).
+template <int KQ, int STRIDE>
+__device__ __forceinline__ float cluster_sum(cg::cluster_group& cluster,
+                                             float* part, int x, int first,
+                                             int C, int W, int lane,
+                                             float (&acc)[KQ]) {
+#pragma unroll
+  for (int off = 16; off >= 1; off >>= 1) {
+#pragma unroll
+    for (int q = 0; q < KQ; ++q)
+      acc[q] = acc[q] + __shfl_xor_sync(0xffffffffu, acc[q], off);
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int q = 0; q < KQ; ++q) part[STRIDE * x + q] = acc[q];
+  }
+  cluster.sync();
+  float sum = 0.0f;
+  if (lane < KQ) {
+    for (int rr = 0; rr < C; ++rr) {
+      const float* pr = cluster.map_shared_rank(part + STRIDE * first, rr);
+      for (int ww = 0; ww < W; ++ww) {
+        const float pv = pr[STRIDE * ww + lane];
+        sum = (rr == 0 && ww == 0) ? pv : sum + pv;
+      }
+    }
+  }
+  return sum;
+}
+
+// The mode's sums: the upper H terms, then the P g terms and the cost.
+// A block has at most kMaxWarps warps; kStride is the row stride of the
+// warps' partial sums in shared memory.
+template <int P>
+struct Mode;
+template <>
+struct Mode<4> {
+  static constexpr int kH = 10, kQ = kQ4, kMaxWarps = kP4MaxWarps,
+                       kStride = 16;
+};
+template <>
+struct Mode<6> {
+  static constexpr int kH = kH6, kQ = kQ6, kMaxWarps = kP6MaxWarps,
+                       kStride = 32;
+};
+
+// The H and g of the last accepted sweep, which the damped solves after
+// a rejected step reuse.  P = 4: in registers.  P = 6: in this warp's row
+// of shared memory, since a 6-DoF lane already holds the 28 running sums
+// and the rotation's 36 terms.  Every lane of the warp calls keep() (the
+// accept is the same in all of them); lane q holds term q's total.
+template <int P>
+struct Carried;
+template <>
+struct Carried<4> {
+  float hg[kQ4 - 1];
+  __device__ explicit Carried(float*) {}
+  __device__ __forceinline__ void keep(float sum, int) {
+#pragma unroll
+    for (int q = 0; q < kQ4 - 1; ++q) hg[q] = __shfl_sync(0xffffffffu, sum, q);
+  }
+  __device__ __forceinline__ const float* H() const { return hg; }
+};
+template <>
+struct Carried<6> {
+  float* hg;
+  __device__ explicit Carried(float* row) : hg(row) {}
+  __device__ __forceinline__ void keep(float sum, int lane) {
+    if (lane < kQ6 - 1) hg[lane] = sum;
+    __syncwarp();
+  }
+  __device__ __forceinline__ const float* H() const { return hg; }
+};
+
+// One sweep of mode P at theta: the rotation's terms (cos and sin of ry,
+// or R and dR/dr_j), then the warp's points into acc (all sums, or the
+// cost alone).
+template <int P, bool RESIDENT, bool FULL>
+__device__ __forceinline__ void sweep(const float (&th)[P], const Cam& k,
+                                      int lane, int len, const float4* my_pts,
+                                      const float* my_lab, const float* Pp,
+                                      const float* lab, const float* val,
+                                      int v0, float (&acc)[Mode<P>::kQ]) {
+  if constexpr (P == 4) {
+    const float c = cosf(th[0]), s = sinf(th[0]);
+    sweep_points4<RESIDENT, FULL>(th, c, s, k, lane, len, my_pts, my_lab, Pp,
+                                  lab, val, v0, acc);
+  } else {
+    float rot[kRot];
+    rot6(th, rot);
+    const float t[3] = {th[3], th[4], th[5]};
+    sweep_points6<RESIDENT, FULL>(rot, t, k, lane, len, my_pts, my_lab, Pp,
+                                  lab, val, v0, acc);
+  }
+}
+
+// The solve of mode P: theta = [ry, t] (P = 4) or [r, t] (P = 6), the
+// translation box-clipped.
+template <int P, bool RESIDENT>
+__global__ void __launch_bounds__(Mode<P>::kMaxWarps * 32)
+lm_kernel(const float* __restrict__ pts, const float* __restrict__ labels,
+          const float* __restrict__ valid, const float* __restrict__ kparams,
+          const float* __restrict__ theta0, float* __restrict__ theta_out,
+          float* __restrict__ cost_out, int N, int I, int max_iter, float H1,
+          float W1, float lb0, float lb1, float lb2, float ub0, float ub1,
+          float ub2, int C, int G, int W, int S) {
+  using M = Mode<P>;
+  constexpr int R = P - 3;  // rotation parameters
   cg::cluster_group cluster = cg::this_cluster();
   extern __shared__ float4 s_pts[];                 // W S rows, W S labels
-  __shared__ float s_part[2][kP4MaxWarps][16];      // 15 used
+  __shared__ float s_part[2][M::kMaxWarps][M::kStride];
+  __shared__ float s_hg[P == 6 ? M::kMaxWarps : 1][32];  // Carried<6>
   const int rank = (int)cluster.block_rank();
   const int group = blockIdx.x / C, b = blockIdx.y;
   const int x = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -716,103 +771,71 @@ lm_p4_kernel(const float* __restrict__ pts, const float* __restrict__ labels,
   }
 
   int buf = 0;
-  float theta[4], Hm[10], g4[4], cost, lam = 1e-3f, tot[kQ4];
-  const float* t0 = theta0 + ((size_t)b * I + i) * 4;
-  theta[0] = t0[0];
+  float theta[P], prop[P], cost = 0.0f, lam = 1e-3f;
+  Carried<P> carried(s_hg[P == 6 ? x : 0]);
+  const float* t0 = theta0 + ((size_t)b * I + i) * P;
 #pragma unroll
-  for (int q = 0; q < 3; ++q) theta[1 + q] = clipn(t0[1 + q], lb[q], ub[q]);
-  float prop[4] = {theta[0], theta[1], theta[2], theta[3]};
+  for (int q = 0; q < R; ++q) theta[q] = t0[q];
+#pragma unroll
+  for (int q = 0; q < 3; ++q) theta[R + q] = clipn(t0[R + q], lb[q], ub[q]);
+#pragma unroll
+  for (int q = 0; q < P; ++q) prop[q] = theta[q];
 
   // sweep 0 at theta, then one sweep per iteration at the proposal (the
   // last one sums the cost alone: no step uses its H and g); every
   // barrier is reached by all threads of the cluster (the loop bounds
   // depend on the block only)
   for (int it = 0; it <= max_iter; ++it) {
-    float acc[kQ4];
+    float acc[M::kQ];
 #pragma unroll
-    for (int q = 0; q < kQ4; ++q) acc[q] = 0.0f;
-    const float c = cosf(prop[0]), s = sinf(prop[0]);
+    for (int q = 0; q < M::kQ; ++q) acc[q] = 0.0f;
     if (it < max_iter) {
-      sweep_points4<RESIDENT, true>(prop, c, s, k, lane, len, my_pts,
-                                    my_lab, Pp, lab, val, v0, acc);
+      sweep<P, RESIDENT, true>(prop, k, lane, len, my_pts, my_lab, Pp, lab,
+                               val, v0, acc);
     } else {
-      sweep_points4<RESIDENT, false>(prop, c, s, k, lane, len, my_pts,
-                                     my_lab, Pp, lab, val, v0, acc);
+      sweep<P, RESIDENT, false>(prop, k, lane, len, my_pts, my_lab, Pp, lab,
+                                val, v0, acc);
     }
-#pragma unroll
-    for (int off = 16; off >= 1; off >>= 1) {
-#pragma unroll
-      for (int q = 0; q < kQ4; ++q)
-        acc[q] = acc[q] + __shfl_xor_sync(0xffffffffu, acc[q], off);
-    }
-    if (lane == 0) {
-#pragma unroll
-      for (int q = 0; q < kQ4; ++q) s_part[buf][x][q] = acc[q];
-    }
-    cluster.sync();
-    float sum = 0.0f;
-    if (lane < kQ4) {
-      for (int rr = 0; rr < C; ++rr) {
-        const float* part =
-            cluster.map_shared_rank(&s_part[buf][g * W][0], rr);
-        for (int ww = 0; ww < W; ++ww) {
-          const float pv = part[16 * ww + lane];
-          sum = (rr == 0 && ww == 0) ? pv : sum + pv;
-        }
-      }
-    }
-#pragma unroll
-    for (int q = 0; q < kQ4; ++q) tot[q] = __shfl_sync(0xffffffffu, sum, q);
+    const float sum = cluster_sum<M::kQ, M::kStride>(
+        cluster, &s_part[buf][0][0], x, g * W, C, W, lane, acc);
     buf ^= 1;
-
-    if (it == 0) {
-#pragma unroll
-      for (int q = 0; q < 10; ++q) Hm[q] = tot[q];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) g4[q] = tot[10 + q];
-      cost = tot[14];
-    } else {
-      const bool accept = tot[14] < cost;
-      if (accept) {
-#pragma unroll
-        for (int q = 0; q < 4; ++q) theta[q] = prop[q];
-#pragma unroll
-        for (int q = 0; q < 10; ++q) Hm[q] = tot[q];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) g4[q] = tot[10 + q];
-        cost = tot[14];
-      }
+    const float c_new = __shfl_sync(0xffffffffu, sum, M::kQ - 1);
+    const bool accept = it == 0 || c_new < cost;
+    if (it > 0)
       lam = fminf(fmaxf(accept ? lam / 3.0f : lam * 3.0f, 1e-9f), 1e9f);
+    if (accept) {
+#pragma unroll
+      for (int q = 0; q < P; ++q) theta[q] = prop[q];
+      cost = c_new;
+      carried.keep(sum, lane);
     }
     if (it < max_iter) {
-      float delta[4];
-      chol_solve<4>(Hm, g4, lam, delta);
-      prop[0] = theta[0] - delta[0];
+      float delta[P];
+      chol_solve<P>(carried.H(), carried.H() + M::kH, lam, delta);
+#pragma unroll
+      for (int q = 0; q < R; ++q) prop[q] = theta[q] - delta[q];
 #pragma unroll
       for (int q = 0; q < 3; ++q)
-        prop[1 + q] = clipn(theta[1 + q] - delta[1 + q], lb[q], ub[q]);
+        prop[R + q] = clipn(theta[R + q] - delta[R + q], lb[q], ub[q]);
     }
   }
   if (lane == 0 && rank == 0 && w == 0 && i_own < I) {
-    float* to = theta_out + ((size_t)b * I + i_own) * 4;
+    float* to = theta_out + ((size_t)b * I + i_own) * P;
 #pragma unroll
-    for (int q = 0; q < 4; ++q) to[q] = theta[q];
+    for (int q = 0; q < P; ++q) to[q] = theta[q];
     cost_out[(size_t)b * I + i_own] = cost;
   }
   cluster.sync();  // no block leaves while another may read its partials
 }
 
-template <bool RESIDENT>
-int launch_lm_p4(const float* pts, const float* labels, const float* valid,
-                 const float* kparams, const float* theta0, float* theta_out,
-                 float* cost_out, int B, int N, int I, int max_iter,
-                 float H1, float W1, float lb0, float lb1, float lb2,
-                 float ub0, float ub1, float ub2, int C, int G, int W, int S,
-                 cudaStream_t stream) {
-  const size_t smem = RESIDENT ? (size_t)W * S * kP4RowBytes : 0;
+// Launch a cluster kernel of either mode: (ceil(I / G) C, B) blocks of
+// 32 G W threads in clusters of C, `smem` bytes of dynamic shared memory.
+template <typename... KArgs, typename... Args>
+int launch_clusters(void (*kernel)(KArgs...), int B, int I, int C, int G,
+                    int W, size_t smem, cudaStream_t stream, Args... args) {
   cudaError_t err = cudaFuncSetAttribute(
-      lm_p4_kernel<RESIDENT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kP4MaxTile * kP4RowBytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kLmMaxTile * kLmRowBytes);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((I + G - 1) / G * C, B, 1);
@@ -826,60 +849,64 @@ int launch_lm_p4(const float* pts, const float* labels, const float* valid,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, lm_p4_kernel<RESIDENT>, pts, labels, valid,
-                           kparams, theta0, theta_out, cost_out, N, I,
-                           max_iter, H1, W1, lb0, lb1, lb2, ub0, ub1, ub2, C,
-                           G, W, S);
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// The mode's kernel (P = 4 or 6) for resident or streamed points.
+using LmKernel = void (*)(const float*, const float*, const float*,
+                          const float*, const float*, float*, float*, int,
+                          int, int, float, float, float, float, float, float,
+                          float, float, int, int, int, int);
+
+LmKernel lm_kernel_for(int P, bool resident) {
+  if (P == 4) return resident ? lm_kernel<4, true> : lm_kernel<4, false>;
+  return resident ? lm_kernel<6, true> : lm_kernel<6, false>;
 }
 
 }  // namespace
 
 // The launch's layout comes from the wrapper
-// (register/frustum_cuda.py::lm_p4_plan and lm_p4_layout), which owns it:
-// C blocks per cluster, G inits per block, W warps per init, S points per
+// (register/frustum_cuda.py::lm_plan and lm_layout), which owns it: C
+// blocks per cluster, G inits per block, W warps per init, S points per
 // virtual slice, and whether a block keeps its W S points in shared memory
 // (resident).  The sum order depends on C W, S and resident, and the plain
 // version repeats it from the same layout; here they are only checked.
-extern "C" int lm_solve_p4_f32(const void* pts, const void* labels,
-                               const void* valid, const void* kparams,
-                               const void* theta0, void* theta_out,
-                               void* cost_out, int B, int N, int I,
-                               int max_iter, float H1, float W1, float lb0,
-                               float lb1, float lb2, float ub0, float ub1,
-                               float ub2, int C, int G, int W, int S,
-                               int resident, void* stream) {
-  if (B <= 0 || N <= 0 || I <= 0 || B > 65535 || max_iter < 0 || C < 1 ||
-      C > kP4MaxCluster || G < 1 || W < 1 || G * W > kP4MaxWarps ||
-      S < 32 || S % 32 != 0 || (long long)S * C * W < N ||
-      (resident && W * S > kP4MaxTile)) {
+// theta0 and theta_out are (B, I, P).
+extern "C" int lm_solve_f32(const void* pts, const void* labels,
+                            const void* valid, const void* kparams,
+                            const void* theta0, void* theta_out,
+                            void* cost_out, int B, int N, int I, int max_iter,
+                            float H1, float W1, float lb0, float lb1,
+                            float lb2, float ub0, float ub1, float ub2, int P,
+                            int C, int G, int W, int S, int resident,
+                            void* stream) {
+  const int max_warps =
+      P == 4 ? Mode<4>::kMaxWarps : Mode<6>::kMaxWarps;
+  if (B <= 0 || N <= 0 || I <= 0 || B > 65535 || max_iter < 0 ||
+      (P != 4 && P != 6) || C < 1 || C > kLmMaxCluster || G < 1 || W < 1 ||
+      G * W > max_warps || S < 32 || S % 32 != 0 ||
+      (long long)S * C * W < N || (resident && W * S > kLmMaxTile)) {
     return (int)cudaErrorInvalidValue;
   }
-  const float* P = static_cast<const float*>(pts);
-  const float* L = static_cast<const float*>(labels);
-  const float* V = static_cast<const float*>(valid);
-  const float* Kp = static_cast<const float*>(kparams);
-  const float* T0 = static_cast<const float*>(theta0);
-  float* TO = static_cast<float*>(theta_out);
-  float* CO = static_cast<float*>(cost_out);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (resident) {
-    return launch_lm_p4<true>(P, L, V, Kp, T0, TO, CO, B, N, I, max_iter, H1,
-                              W1, lb0, lb1, lb2, ub0, ub1, ub2, C, G, W, S,
-                              st);
-  }
-  return launch_lm_p4<false>(P, L, V, Kp, T0, TO, CO, B, N, I, max_iter, H1,
-                             W1, lb0, lb1, lb2, ub0, ub1, ub2, C, G, W, S,
-                             st);
+  const size_t smem = resident ? (size_t)W * S * kLmRowBytes : 0;
+  return launch_clusters(
+      lm_kernel_for(P, resident != 0), B, I, C, G, W, smem,
+      static_cast<cudaStream_t>(stream), static_cast<const float*>(pts),
+      static_cast<const float*>(labels), static_cast<const float*>(valid),
+      static_cast<const float*>(kparams), static_cast<const float*>(theta0),
+      static_cast<float*>(theta_out), static_cast<float*>(cost_out), N, I,
+      max_iter, H1, W1, lb0, lb1, lb2, ub0, ub1, ub2, C, G, W, S);
 }
 
-// The resident P = 4 kernel's registers per thread, static shared memory,
-// local (spill) memory per thread in bytes and the most threads per block,
-// into out[0..3].
-extern "C" int lm_p4_func_attrs(void* out) {
+// The resident kernel of mode P: registers per thread, static shared
+// memory, local (spill) memory per thread in bytes and the most threads per
+// block, into out[0..3].
+extern "C" int lm_func_attrs(int P, void* out) {
+  if (P != 4 && P != 6) return (int)cudaErrorInvalidValue;
   cudaFuncAttributes a;
-  const cudaError_t err = cudaFuncGetAttributes(&a, lm_p4_kernel<true>);
+  const cudaError_t err = cudaFuncGetAttributes(&a, lm_kernel_for(P, true));
   if (err != cudaSuccess) return (int)err;
   int* o = static_cast<int*>(out);
   o[0] = a.numRegs;
@@ -887,24 +914,4 @@ extern "C" int lm_p4_func_attrs(void* out) {
   o[2] = (int)a.localSizeBytes;
   o[3] = a.maxThreadsPerBlock;
   return 0;
-}
-
-extern "C" int lm_solve_p6_f32(const void* pts, const void* labels,
-                               const void* valid, const void* kparams,
-                               const void* theta0, void* theta_out,
-                               void* cost_out, int B, int N, int I,
-                               int max_iter, float H1, float W1, float lb0,
-                               float lb1, float lb2, float ub0, float ub1,
-                               float ub2, void* stream) {
-  if (B <= 0 || N <= 0 || I <= 0 || B > 65535 || max_iter < 0) {
-    return (int)cudaErrorInvalidValue;
-  }
-  lm_p6_kernel<<<dim3(I, B), kThreads, 0,
-                 static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(pts), static_cast<const float*>(labels),
-      static_cast<const float*>(valid), static_cast<const float*>(kparams),
-      static_cast<const float*>(theta0), static_cast<float*>(theta_out),
-      static_cast<float*>(cost_out), N, I, max_iter, H1, W1, lb0, lb1, lb2,
-      ub0, ub1, ub2);
-  return (int)cudaGetLastError();
 }

@@ -10,16 +10,14 @@ and CPU tensors to :func:`lm_solve_plain`.
 
 :func:`lm_solve_plain` is vectorised over (pairs, inits) and repeats the
 kernel's arithmetic step for step: the same per-point expressions in the
-same order, and every sum over points taken in the kernel's order.  For
-P = 4 that is the cluster layout of :func:`lm_p4_plan`: C W virtual slices
-of the points, each lane's points of a slice in turn, a 32-lane
+same order, and every sum over points taken in the kernel's order.  In
+both modes that is the cluster layout of :func:`lm_plan`: C W virtual
+slices of the points, each lane's points of a slice in turn, a 32-lane
 butterfly, then the slices in turn (:func:`_cluster_sum`), with each
 slice's inside-labelled points first when the kernel keeps them in shared
-memory (:func:`_p4_point_order`).  For P = 6 it is 256 threads striding
-over the points, a 32-lane butterfly in each warp, then the 8 warps in
-turn (:func:`_block_sum`).  It has the Pallas kernel's carry semantics:
-one sweep per iteration at the proposal, the carried H and g kept on a
-rejected step.
+memory (:func:`_point_order`).  It has the Pallas kernel's carry
+semantics: one sweep per iteration at the proposal, the carried H and g
+kept on a rejected step.
 
 The 6-DoF Jacobian is derived by hand (the Pallas kernel linearises with
 ``jax.linearize``): ``p = R(r) x + t`` with the rotation of
@@ -36,7 +34,9 @@ where ``R = I + [r]x``).  R and the three dR/dr_j depend on theta only,
 so they are computed once per (init, sweep); per point
 ``dp/dr_j = (dR/dr_j) x`` and ``dp/dt_j = e_j``.  As in the Pallas 6-DoF
 path, the residual rows and hence the Jacobian rows carry the point's
-``valid`` factor.
+``valid`` factor; an outside-labelled point's rows 1 and 2 are exactly 0,
+as the kernel computes them (the Pallas kernel's ``0 * valid``, which
+differs only for an infinite ``valid``).
 """
 from __future__ import annotations
 
@@ -49,66 +49,88 @@ import torch.nn.functional as F
 
 from .. import _build
 
-THREADS = 256        # the P = 6 kernel's block size (and its sum order)
 WARP = 32
-# The P = 4 kernel's launch (csrc/frustum_lm.cu, lm_p4_kernel): clusters of
-# at most P4_MAX_CLUSTER blocks of G x W <= P4_MAX_WARPS warps; a block
-# whose points number at most P4_TILE keeps them in shared memory.
-P4_MAX_CLUSTER = 8
-P4_MAX_WARPS = 16
-P4_TILE = 5120
-P4_TARGET_WARPS = 2048
-# f32 operations per point per init per sweep, counted from the kernel's
-# arithmetic (adds, multiplies, divides, compares, selects and each
-# transcendental as one): projection and Jacobian ~35, residuals, signs
-# and gates ~40, Jacobian selects ~15, robust weight and cost ~10, the 15
-# weighted sums ~50.  The roofline bound of the chip check uses it.
-LM_OPS_PER_POINT = 150
-# The same count for the 6-DoF mode: the point p = R x + t 18, projection
-# and its partials 11, dR/dr_j x for 3 rotation params 45, their pixel
-# partials 18 and the tz ones 4, residuals, signs, gates and the valid
-# factor 61, the 6 Jacobian columns 72, robust weight 7, the 21 H terms
-# 126, the 6 g terms 36, the cost 3, the 28 running sums 28.
-LM6_OPS_PER_POINT = 429
+# The kernel's own limits (csrc/frustum_lm.cu, lm_kernel<P>): clusters of
+# at most LM_MAX_CLUSTER blocks of G x W <= LM_MAX_WARPS[P] warps; a block
+# whose points number at most LM_TILE keeps them in shared memory, in
+# LM_ROW_BYTES each.  A 6-DoF lane holds 28 running sums and the
+# rotation's 36 terms, so its blocks have at most 8 warps.
+_LM = _build.constants("frustum_lm.cu")
+LM_MAX_CLUSTER = _LM["kLmMaxCluster"]
+LM_MAX_WARPS = {4: _LM["kP4MaxWarps"], 6: _LM["kP6MaxWarps"]}
+LM_TILE = _LM["kLmMaxTile"]
+LM_ROW_BYTES = _LM["kLmRowBytes"]
+LM_TARGET_WARPS = 2048
+# f32 operations per point and init of one sweep, (full sweep, cost-only
+# last sweep) for an inside- and an outside-labelled point, counted from
+# the kernel's label-specialised arithmetic: each add, multiply, divide,
+# max, compare(-and-select), select and transcendental is one; a negation
+# or an absolute value, which the card folds into an operand, is none.
+# 2-D: the projection and its partials 29 (16 in the cost-only sweep);
+# inside, residuals and signs 17, Jacobian 7, |r|^2 5, weight 2, the 14 H
+# and g terms 56, cost 3, sums 15 (cost-only: residuals 10, |r|^2 5, cost
+# and its sum 4); outside, the gate, residual and signs 16, Jacobian 8,
+# |r|^2 1, weight 2, H and g 28, cost 3, sums 15 (cost-only: 14).
+# 6-DoF: p = R x + t and the projection 25; inside, residuals 13, |r|^2
+# 5, signs 7, a b u v 4, dR/dr_j x and its pixel partials 63, the tz
+# partials 2, three Jacobian rows 36, weight 2, the 21 H terms 126 + 21
+# sums, the 6 g terms 36 + 6, cost 4 (cost-only: 13 + 5 + 4); outside,
+# the gate and residual 10, |r|^2 1, signs 4, a b u v 4, the gated
+# Jacobian row 78 + 13, weight 2, H 63, g 18, cost 4 (cost-only: 15).
+LM_OPS = {4: {"in": (134, 35), "out": (102, 30)},
+          6: {"in": (350, 47), "out": (222, 40)}}
 
 
-def lm_p4_plan(B: int, N: int, I: int) -> Tuple[int, int, int]:
-    """(C, G, W) of the P = 4 kernel's launch for B pairs, N points and I
-    inits: one cluster of C blocks per (pair, group of G inits), W warps
-    per init in each block.
+def lm_ops(labels: torch.Tensor, I: int, max_iter: int, P: int) -> int:
+    """f32 operations of one solve in mode P over these labels (B, N) and
+    I inits: max_iter full sweeps and the cost-only last one, each point
+    at its own label's count (:data:`LM_OPS`).  The chip check's bound."""
+    n_in = int((labels > 0.5).sum())
+    n_out = labels.numel() - n_in
+    (f_in, c_in), (f_out, c_out) = LM_OPS[P]["in"], LM_OPS[P]["out"]
+    return I * (n_in * (max_iter * f_in + c_in)
+                + n_out * (max_iter * f_out + c_out))
+
+
+def lm_plan(B: int, N: int, I: int, P: int) -> Tuple[int, int, int]:
+    """(C, G, W) of the kernel's launch in mode P (4 or 6) for B pairs, N
+    points and I inits: one cluster of C blocks per (pair, group of G
+    inits), W warps per init in each block.
 
     Clusters of two blocks: the H100 places clusters of 4 or 8 blocks on
     only 124 of its 132 SMs, and a cluster barrier per sweep makes every
     cluster wait for its busiest SM, so blocks must spread evenly.  W
-    doubles until the launch has :data:`P4_TARGET_WARPS` warps (about 16
-    per SM), G = min(8, I, 16 / W), and C doubles only while a block's
-    points would not fit shared memory.  The main path's probe (B=32,
-    N=5120, I=64) gets (2, 8, 1), 512 blocks of 8 warps; its refine
-    (N=10240, I=8) (2, 4, 4), 128 blocks of 16 warps, one per SM
-    (``python -m deepi2p_tpu_torch.profile_lm_plans`` times the other
-    plans)."""
+    doubles until the launch has :data:`LM_TARGET_WARPS` warps (about 16
+    per SM) or a block is full, G = min(8, I, LM_MAX_WARPS[P] / W), and C
+    doubles only while a block's points would not fit shared memory.  The
+    main path's probe (B=32, N=5120, I=64) gets (2, 8, 1) in both modes,
+    512 blocks of 8 warps; its refine (N=10240, I=8) (2, 4, 4) in the 2-D
+    mode, 128 blocks of 16 warps, one per SM, and (2, 2, 4) in the 6-DoF
+    mode, 256 blocks of 8 warps (``python -m
+    deepi2p_tpu_torch.profile_lm_plans`` times the other plans)."""
+    max_w = LM_MAX_WARPS[P]
     C, W = 2, 1
-    while B * I * C * W < P4_TARGET_WARPS and W < P4_MAX_WARPS:
+    while B * I * C * W < LM_TARGET_WARPS and W < max_w:
         W *= 2
-    G = max(1, min(8, I, P4_MAX_WARPS // W))
-    while not lm_p4_layout(N, C, W)[1] and C < P4_MAX_CLUSTER:
+    G = max(1, min(8, I, max_w // W))
+    while not lm_layout(N, C, W)[1] and C < LM_MAX_CLUSTER:
         C *= 2
     return C, G, W
 
 
-def lm_p4_layout(N: int, C: int, W: int) -> Tuple[int, bool]:
-    """(S, resident) of a P = 4 launch: the points are cut into C W
-    virtual slices of S points (S a multiple of 32; the last ones short or
-    empty), and a block's W S points stay in shared memory when they
-    number at most :data:`P4_TILE`.  The kernel takes both from here and
-    only checks them; the plain version sums in the same layout."""
+def lm_layout(N: int, C: int, W: int) -> Tuple[int, bool]:
+    """(S, resident) of a launch: the points are cut into C W virtual
+    slices of S points (S a multiple of 32; the last ones short or empty),
+    and a block's W S points stay in shared memory when they number at
+    most :data:`LM_TILE`.  The kernel takes both from here and only checks
+    them; the plain version sums in the same layout."""
     S = -(-N // (WARP * C * W)) * WARP
-    return S, W * S <= P4_TILE
+    return S, W * S <= LM_TILE
 
 
-def _p4_point_order(labels: torch.Tensor, S: int) -> torch.Tensor:
-    """(B, N) point order of a resident P = 4 launch: each virtual slice
-    of S points with its inside-labelled points (label > 0.5) first, both
+def _point_order(labels: torch.Tensor, S: int) -> torch.Tensor:
+    """(B, N) point order of a resident launch: each virtual slice of S
+    points with its inside-labelled points (label > 0.5) first, both
     groups in index order, as the kernel stages them."""
     N = labels.shape[1]
     pos = torch.arange(N, device=labels.device)
@@ -117,11 +139,11 @@ def _p4_point_order(labels: torch.Tensor, S: int) -> torch.Tensor:
 
 
 def _cluster_sum(x: torch.Tensor, V: int, S: int) -> torch.Tensor:
-    """Sum over the last axis in the P = 4 kernel's order for V = C W
-    virtual slices of S points (:func:`lm_p4_layout`): each of a slice's
-    32 lanes summing its points from 0 in increasing index, a butterfly
-    over the lanes, then the slices in turn.  The zero padding adds +0 to
-    sums that are never -0, so it changes nothing."""
+    """Sum over the last axis in the kernel's order for V = C W virtual
+    slices of S points (:func:`lm_layout`): each of a slice's 32 lanes
+    summing its points from 0 in increasing index, a butterfly over the
+    lanes, then the slices in turn.  The zero padding adds +0 to sums that
+    are never -0, so it changes nothing."""
     N = x.shape[-1]
     x = F.pad(x, (0, V * S - N))
     x = x.reshape(*x.shape[:-1], V, S // WARP, WARP)
@@ -136,27 +158,6 @@ def _cluster_sum(x: torch.Tensor, V: int, S: int) -> torch.Tensor:
     tot = acc[..., 0]
     for r in range(1, V):
         tot = tot + acc[..., r]
-    return tot
-
-
-def _block_sum(x: torch.Tensor) -> torch.Tensor:
-    """Sum over the last axis in the P = 6 kernel's order."""
-    N = x.shape[-1]
-    rows = -(-N // THREADS)
-    x = F.pad(x, (0, rows * THREADS - N))
-    x = x.reshape(*x.shape[:-1], rows, THREADS)
-    acc = x[..., 0, :]
-    for r in range(1, rows):
-        acc = acc + x[..., r, :]
-    acc = acc.reshape(*acc.shape[:-1], THREADS // WARP, WARP)
-    off = WARP // 2
-    while off >= 1:
-        acc = acc[..., :off] + acc[..., off:2 * off]
-        off //= 2
-    acc = acc[..., 0]
-    tot = acc[..., 0]
-    for w in range(1, THREADS // WARP):
-        tot = tot + acc[..., w]
     return tot
 
 
@@ -308,8 +309,10 @@ def _rot6(theta):
 
 
 def _sweep6(theta, xs, ys, zs, lab, val, fx, fy, cx, cy, H1: float,
-            W1: float):
-    """H (21 upper terms), g (6) and cost at theta, each (B, I), 6-DoF.
+            W1: float, V: int, S: int):
+    """H (21 upper terms), g (6) and cost at theta, each (B, I), 6-DoF,
+    summed in the order of a launch with V = C W virtual slices of S
+    points.
 
     theta (B, I, 6); xs..val (B, 1, N); fx..cy (B, 1, 1)."""
     R, dR = _rot6(theta)
@@ -342,16 +345,17 @@ def _sweep6(theta, xs, ys, zs, lab, val, fx, fy, cx, cy, H1: float,
         px, py, p2, H1, W1)
     inn = lab > 0.5
     r0 = torch.where(inn, r0_in, r_out) * val
-    r1 = torch.where(inn, r1_in, zero) * val
-    r2 = torch.where(inn, r2_in, zero) * val
+    # an outside point's rows 1 and 2 are exactly 0, as in the kernel
+    r1 = torch.where(inn, r1_in * val, zero)
+    r2 = torch.where(inn, r2_in * val, zero)
     # the outside rows' derivative is selected by the gate as well (the
     # Pallas kernel's linearised r_out; the 2-D rows keep sxd * dpx, whose
     # 0 * inf at p2 == 0 is NaN in the JAX package too)
     J0 = [torch.where(inn, s0 * dpx[j],
                       torch.where(on, sxd * dpx[j] + syd * dpy[j], zero))
           * val for j in range(6)]
-    J1 = [torch.where(inn, s1 * dpy[j], zero) * val for j in range(6)]
-    J2 = [torch.where(inn, s2 * dz[j], zero) * val for j in range(6)]
+    J1 = [torch.where(inn, s1 * dpy[j] * val, zero) for j in range(6)]
+    J2 = [torch.where(inn, s2 * dz[j] * val, zero) for j in range(6)]
 
     sb = r0 * r0 + r1 * r1 + r2 * r2
     w = val / (1.0 + sb)
@@ -361,7 +365,7 @@ def _sweep6(theta, xs, ys, zs, lab, val, fx, fy, cx, cy, H1: float,
     terms.append(0.5 * torch.log1p(sb) * val)
     shape = torch.broadcast_shapes(*(t.shape for t in terms))
     terms = torch.stack([t.expand(shape) for t in terms], dim=2)
-    tot = _block_sum(terms)                          # (B, I, 28)
+    tot = _cluster_sum(terms, V, S)                  # (B, I, 28)
     return tot[..., :21], tot[..., 21:27], tot[..., 27]
 
 
@@ -433,23 +437,22 @@ def lm_solve_plain(pts, labels, valid, K, theta0, t_lb, t_ub, *, H: int,
     """Plain version of the LM kernel (any device; f32).
 
     Args as :func:`lm_solve`.  Returns (theta (B, I, P), cost (B, I)).
-    ``_plan`` (P = 4; for tests and plan timings) replaces
-    :func:`lm_p4_plan`'s (C, G, W), whose sum order is repeated."""
+    ``_plan`` (for tests and plan timings) replaces :func:`lm_plan`'s
+    (C, G, W), whose sum order is repeated."""
     _check_inputs(pts, labels, valid, K, theta0)
     f32 = torch.float32
     pts, labels, valid = pts.to(f32), labels.to(f32), valid.to(f32)
-    if theta0.shape[2] == 4:
-        C, _, warps = _plan or lm_p4_plan(pts.shape[0], pts.shape[1],
-                                          theta0.shape[1])
-        S, resident = lm_p4_layout(pts.shape[1], C, warps)
-        if resident:
-            order = _p4_point_order(labels, S)
-            pts = torch.gather(pts, 1, order[..., None].expand(-1, -1, 3))
-            labels = torch.gather(labels, 1, order)
-            valid = torch.gather(valid, 1, order)
-        sweep_fn = functools.partial(_sweep, V=C * warps, S=S)
-    else:
-        sweep_fn = _sweep6
+    B, N, _ = pts.shape
+    P = theta0.shape[2]
+    C, _, warps = _plan or lm_plan(B, N, theta0.shape[1], P)
+    S, resident = lm_layout(N, C, warps)
+    if resident:
+        order = _point_order(labels, S)
+        pts = torch.gather(pts, 1, order[..., None].expand(-1, -1, 3))
+        labels = torch.gather(labels, 1, order)
+        valid = torch.gather(valid, 1, order)
+    sweep_fn = functools.partial(_sweep if P == 4 else _sweep6,
+                                 V=C * warps, S=S)
     xs, ys, zs = (pts[:, None, :, d] for d in range(3))        # (B, 1, N)
     lab, val = labels[:, None, :], valid[:, None, :]
     K = K.to(f32)
@@ -472,19 +475,21 @@ def lm_solve_plain(pts, labels, valid, K, theta0, t_lb, t_ub, *, H: int,
         Hm = torch.where(acc[..., None], Hn, Hm)
         g = torch.where(acc[..., None], gn, g)
         cost = torch.where(acc, cn, cost)
-        lam = torch.clamp(torch.where(acc, lam / 3.0, lam * 3.0),
-                          min=1e-9, max=1e9)
+        # a true division, as the kernel's: PyTorch on a CUDA device
+        # multiplies by the reciprocal of a Python scalar divisor instead
+        lam = torch.clamp(torch.where(acc, lam / torch.full_like(lam, 3.0),
+                                      lam * 3.0), min=1e-9, max=1e9)
     return theta, cost
 
 
 def lm_solve_cuda(pts, labels, valid, K, theta0, t_lb, t_ub, *, H: int,
                   W: int, max_iter: int = 16, _plan=None):
     """The LM kernel on the card, in the mode of theta0's P (4 or 6).  All
-    inputs f32, contiguous, on one CUDA device.  The P = 4 launch's layout
-    is :func:`lm_p4_plan`'s and :func:`lm_p4_layout`'s; ``_plan`` (for
-    tests and plan timings) replaces the (C, G, W).
-    ``lm_solve_cuda.launches`` counts the launches of the 2-D mode,
-    ``lm_solve_cuda.launches_p6`` those of the 6-DoF mode."""
+    inputs f32, contiguous, on one CUDA device.  The launch's layout is
+    :func:`lm_plan`'s and :func:`lm_layout`'s; ``_plan`` (for tests and
+    plan timings) replaces the (C, G, W).  ``lm_solve_cuda.launches``
+    counts the launches of the 2-D mode, ``lm_solve_cuda.launches_p6``
+    those of the 6-DoF mode."""
     _check_inputs(pts, labels, valid, K, theta0)
     dev = pts.device
     for name, t in (("pts", pts), ("labels", labels), ("valid", valid),
@@ -501,32 +506,26 @@ def lm_solve_cuda(pts, labels, valid, K, theta0, t_lb, t_ub, *, H: int,
     if not (0 < B <= 65535 and N > 0 and I > 0 and max_iter >= 0):
         raise ValueError(f"lm_solve_cuda: bad sizes B={B} N={N} I={I} "
                          f"max_iter={max_iter}")
+    C, G, warps = _plan or lm_plan(B, N, I, P)
+    if not (1 <= C <= LM_MAX_CLUSTER and G >= 1 and warps >= 1
+            and G * warps <= LM_MAX_WARPS[P]):
+        raise ValueError(f"lm_solve_cuda: plan (C={C}, G={G}, W={warps}) "
+                         f"outside C<={LM_MAX_CLUSTER}, "
+                         f"G*W<={LM_MAX_WARPS[P]} for P={P}")
+    S, resident = lm_layout(N, C, warps)
     kparams = torch.stack([K[:, 0, 0], K[:, 1, 1], K[:, 0, 2], K[:, 1, 2]],
                           dim=-1).contiguous()
     theta = torch.empty((B, I, P), dtype=torch.float32, device=dev)
     cost = torch.empty((B, I), dtype=torch.float32, device=dev)
     lib = _build.load_library()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    args = (pts.data_ptr(), labels.data_ptr(), valid.data_ptr(),
-            kparams.data_ptr(), theta0.data_ptr(), theta.data_ptr(),
-            cost.data_ptr(), B, N, I, int(max_iter), float(H - 1),
-            float(W - 1), *(float(v) for v in t_lb),
-            *(float(v) for v in t_ub))
-    if P == 4:
-        C, G, warps = _plan or lm_p4_plan(B, N, I)
-        if not (1 <= C <= P4_MAX_CLUSTER and G >= 1 and warps >= 1
-                and G * warps <= P4_MAX_WARPS):
-            raise ValueError(f"lm_solve_cuda: plan (C={C}, G={G}, "
-                             f"W={warps}) outside C<={P4_MAX_CLUSTER}, "
-                             f"G*W<={P4_MAX_WARPS}")
-        S, resident = lm_p4_layout(N, C, warps)
-        name = "lm_solve_p4_f32"
-        code = lib.lm_solve_p4_f32(*args, C, G, warps, S, int(resident),
-                                   stream)
-    else:
-        name = "lm_solve_p6_f32"
-        code = lib.lm_solve_p6_f32(*args, stream)
-    _build.check(code, name)
+    code = lib.lm_solve_f32(
+        pts.data_ptr(), labels.data_ptr(), valid.data_ptr(),
+        kparams.data_ptr(), theta0.data_ptr(), theta.data_ptr(),
+        cost.data_ptr(), B, N, I, int(max_iter), float(H - 1), float(W - 1),
+        *(float(v) for v in t_lb), *(float(v) for v in t_ub), P, C, G, warps,
+        S, int(resident), stream)
+    _build.check(code, "lm_solve_f32")
     if P == 4:
         lm_solve_cuda.launches += 1
     else:
@@ -538,21 +537,22 @@ lm_solve_cuda.launches = 0
 lm_solve_cuda.launches_p6 = 0
 
 
-def lm_p4_attrs() -> dict:
-    """The built P = 4 kernel's registers per thread, static shared memory
-    and spill bytes per thread, and its most threads per block."""
+def lm_attrs(P: int) -> dict:
+    """The built kernel of mode P (its resident variant): registers per
+    thread, static shared memory and spill bytes per thread, and its most
+    threads per block."""
     buf = (ctypes.c_int * 4)()
-    _build.check(_build.load_library().lm_p4_func_attrs(
-        ctypes.addressof(buf)), "lm_p4_func_attrs")
+    _build.check(_build.load_library().lm_func_attrs(
+        P, ctypes.addressof(buf)), "lm_func_attrs")
     return dict(regs=buf[0], static_smem=buf[1], spill_bytes=buf[2],
                 max_threads=buf[3])
 
 
-def lm_p4_smem_bytes(N: int, C: int, W: int) -> int:
-    """Dynamic shared memory of one block of a P = 4 launch: 20 bytes for
+def lm_smem_bytes(N: int, C: int, W: int) -> int:
+    """Dynamic shared memory of one block of a launch: LM_ROW_BYTES for
     each of its W S points when they stay there, else none."""
-    S, resident = lm_p4_layout(N, C, W)
-    return W * S * 20 if resident else 0
+    S, resident = lm_layout(N, C, W)
+    return W * S * LM_ROW_BYTES if resident else 0
 
 
 def lm_solve(pts, labels, valid, K, theta0, t_lb: Sequence[float],

@@ -8,9 +8,9 @@ import torch
 
 from deepi2p_tpu.register.frustum_pallas import lm_solve_pallas
 from deepi2p_tpu_torch.register.frustum_cuda import (_cluster_sum,
-                                                     _p4_point_order,
-                                                     lm_p4_layout, lm_p4_plan,
-                                                     lm_solve, lm_solve_cuda,
+                                                     _point_order, lm_layout,
+                                                     lm_plan, lm_solve,
+                                                     lm_solve_cuda,
                                                      lm_solve_plain)
 
 H, W = 160, 512
@@ -119,13 +119,13 @@ def test_lm_p4_plan_at_the_main_path_shapes():
     4 inits of 4 warps per block, about 16 warps per SM of an H100, every
     block's points in shared memory; a pair too long for that gets larger
     clusters."""
-    assert lm_p4_plan(32, 5120, 64) == (2, 8, 1)
-    assert lm_p4_plan(32, 10240, 8) == (2, 4, 4)
-    assert lm_p4_plan(1, 100, 3) == (2, 1, 16)
-    assert lm_p4_plan(2, 40960, 8) == (8, 1, 16)
+    assert lm_plan(32, 5120, 64, 4) == (2, 8, 1)
+    assert lm_plan(32, 10240, 8, 4) == (2, 4, 4)
+    assert lm_plan(1, 100, 3, 4) == (2, 1, 16)
+    assert lm_plan(2, 40960, 8, 4) == (8, 1, 16)
     for B, N, I in ((32, 5120, 64), (32, 10240, 8), (2, 40960, 8)):
-        C, G, W = lm_p4_plan(B, N, I)
-        assert lm_p4_layout(N, C, W)[1] and G * W <= 16
+        C, G, W = lm_plan(B, N, I, 4)
+        assert lm_layout(N, C, W)[1] and G * W <= 16
 
 
 def test_lm_p4_plan_at_the_eval_shapes():
@@ -134,12 +134,12 @@ def test_lm_p4_plan_at_the_eval_shapes():
     I=8 in clusters of 4, each block's points in shared memory.  A pair
     of 81920 points is too long for shared memory even in clusters of 8,
     so its warps read the points from device memory."""
-    assert lm_p4_plan(8, 5120, 64) == (2, 8, 2)
-    assert lm_p4_layout(5120, 2, 2) == (1280, True)
-    assert lm_p4_plan(8, 20480, 8) == (4, 1, 16)
-    assert lm_p4_layout(20480, 4, 16) == (320, True)
-    assert lm_p4_plan(1, 81920, 8) == (8, 1, 16)
-    assert lm_p4_layout(81920, 8, 16) == (640, False)
+    assert lm_plan(8, 5120, 64, 4) == (2, 8, 2)
+    assert lm_layout(5120, 2, 2) == (1280, True)
+    assert lm_plan(8, 20480, 8, 4) == (4, 1, 16)
+    assert lm_layout(20480, 4, 16) == (320, True)
+    assert lm_plan(1, 81920, 8, 4) == (8, 1, 16)
+    assert lm_layout(81920, 8, 16) == (640, False)
 
 
 def _kernel_order_sum(x, V):
@@ -173,7 +173,7 @@ def test_cluster_sum_is_the_kernels_order(N, V):
     rng = np.random.default_rng(N + V)
     x = (rng.normal(size=(3, N)) * 10.0 ** rng.integers(-3, 4, (3, N))
          ).astype(np.float32)
-    S, _ = lm_p4_layout(N, V, 1)
+    S, _ = lm_layout(N, V, 1)
     got = _cluster_sum(torch.from_numpy(x), V, S).numpy()
     want = np.array([_kernel_order_sum(row, V) for row in x], np.float32)
     np.testing.assert_array_equal(got, want)
@@ -184,11 +184,11 @@ def test_p4_point_order_puts_each_slices_inside_points_first():
     S points, the inside-labelled ones (label > 0.5; NaN is outside)
     first, each group in index order."""
     lab = torch.tensor([[0.0, 1.0, 0.9, 0.2, 1.0, float("nan"), 0.0, 1.0]])
-    order = _p4_point_order(lab, 4)
+    order = _point_order(lab, 4)
     assert order.tolist() == [[1, 2, 0, 3, 4, 7, 5, 6]]
-    S, resident = lm_p4_layout(10240, 2, 4)
+    S, resident = lm_layout(10240, 2, 4)
     assert (S, resident) == (1280, True)
-    assert lm_p4_layout(6000, 1, 1) == (6016, False)
+    assert lm_layout(6000, 1, 1) == (6016, False)
 
 
 # the plain version summing in the cluster layout, against the Pallas

@@ -15,7 +15,13 @@ import torch
 
 from deepi2p_tpu.ops.knn_pallas import nn1_pallas
 from deepi2p_tpu_torch.ops.knn import nn1, nn1_plain
-from deepi2p_tpu_torch.ops.knn_cuda import nn1_cuda
+from deepi2p_tpu_torch.ops.knn_cuda import (NN1_TILE, NN1_TRACK, NN1Card,
+                                             NN1Plan, nn1_cuda, nn1_plan)
+
+# An H100 as the CUDA runtime describes it to nn1_plan: 132 SMs, 227 KB of
+# shared memory per block; two resident blocks per SM (238 registers per
+# thread), one for a 160 KB database
+H100 = NN1Card(sms=132, block_smem=232448, per_sm=2)
 
 
 def _brute(q, db):
@@ -108,3 +114,58 @@ def test_nn1_cuda_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         nn1_cuda(torch.from_numpy(q), torch.from_numpy(db))
     assert nn1_cuda.launches == 0
+
+
+def test_nn1_plan():
+    """The kernel's launch: 16 queries per thread (8 for D > 4), 2048-query
+    chunks; at the ICP launch (512 sets of 20480 against 8 clouds of 5120)
+    each cloud stays in shared memory (80 KB) and 32 blocks walk its 640
+    chunks, 20 each: 256 blocks on the H100's 264 places of two per SM.
+    One init group gets one block per chunk; a database of 20000 rows is
+    too large for shared memory and streams; 5120 rows of D=8 fit once
+    per SM.  The spread follows the card: on half the SMs the ICP
+    launch's 5120 chunks go 39 to a block, 17 blocks per cloud."""
+    assert NN1_TRACK == 64 and NN1_TILE == 1024   # read from csrc/nn1.cu
+    assert nn1_plan(512, 20480, 5120, 3, 8, H100) == NN1Plan(
+        qt=16, chunk=2048, chunks=640, blocks=32, resident=True)
+    assert nn1_plan(8, 20480, 5120, 3, 1, H100) == NN1Plan(
+        16, 2048, 80, 80, True)
+    assert nn1_plan(8, 1000, 20000, 3, 1, H100) == NN1Plan(
+        16, 2048, 4, 4, False)
+    assert nn1_plan(4, 100, 5120, 8, 2, H100._replace(per_sm=1)) == NN1Plan(
+        8, 1024, 1, 1, True)
+    assert nn1_plan(512, 20480, 5120, 3, 8, H100._replace(sms=66)) == \
+        NN1Plan(16, 2048, 640, 17, True)
+
+
+def test_nn1_ties_across_the_kernels_tiles_and_chunks_match_pallas():
+    """Ties the kernel meets at its own boundaries: a row duplicated at 0
+    and M-1 (the first and the last tracked tile), at the edge of a
+    tracked tile (rows NN1_TRACK-1 and NN1_TRACK) and at the edge of a
+    streamed tile (rows NN1_TILE-1 and NN1_TILE), with queries on them
+    at the last place of one query chunk and the first of the next.  The
+    lowest index wins, as in ``nn1_pallas`` and the numpy brute force."""
+    B, Q, N, M, D = 1, 2, 1100, 1100, 3
+    q, db = _inputs(11, B, Q, N, M, D)
+    T = NN1_TRACK
+    db[0, M - 1] = db[0, 0]
+    db[0, T] = db[0, T - 1]
+    db[0, NN1_TILE] = db[0, NN1_TILE - 1]
+    chunk = nn1_plan(B * Q, N, M, D, B, H100).chunk
+    flat = q.reshape(B * Q * N, D)
+    for k, row in enumerate((0, T - 1, NN1_TILE - 1)):
+        flat[chunk - 1 - k] = db[0, row]
+        flat[chunk + k] = db[0, row] + np.float32(1e-3)
+    d2_t, idx_t = nn1_plain(torch.from_numpy(q), torch.from_numpy(db))
+    want = {chunk - 1: 0, chunk: 0, chunk - 2: T - 1, chunk + 1: T - 1,
+            chunk - 3: NN1_TILE - 1, chunk + 2: NN1_TILE - 1}
+    got = idx_t.numpy().reshape(-1)
+    assert {p: int(got[p]) for p in want} == want
+    d2_b, idx_b = _brute(q, np.repeat(db, Q, axis=0))
+    np.testing.assert_array_equal(idx_t.numpy(), idx_b)
+    np.testing.assert_array_equal(d2_t.numpy(), d2_b)
+    d2_p, idx_p = nn1_pallas(jnp.asarray(q), jnp.asarray(np.repeat(db, Q, 0)),
+                             interpret=True)
+    np.testing.assert_array_equal(idx_t.numpy(), np.asarray(idx_p))
+    np.testing.assert_allclose(d2_t.numpy(), np.asarray(d2_p), rtol=1e-6,
+                               atol=0)
