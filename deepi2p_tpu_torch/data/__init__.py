@@ -1,2 +1,4 @@
-"""Data for the port: synthetic batches (numpy) and their move to torch."""
-from .synthetic import synthetic_batch, batch_to_torch
+"""Data for the port: synthetic batches and samples (numpy), their move
+to torch, and ordered batching."""
+from .loader import BatchLoader, collate
+from .synthetic import SyntheticDataset, batch_to_torch, synthetic_batch

@@ -301,6 +301,24 @@ def synthetic_batch(cfg: Config, batch_size: int | None = None,
     return out
 
 
+class SyntheticDataset:
+    """Indexable synthetic samples, the JAX package's ``SyntheticDataset``
+    (``data/synthetic.py:303-340``) at epoch 0: sample ``i`` is
+    ``synthetic_batch(cfg, batch_size=1, seed=(seed << 40) + i)[0]``, so
+    the same dataset seed gives the same samples in both packages."""
+
+    def __init__(self, cfg: Config, length: int = 16, seed: int = 0):
+        self.cfg, self.length, self.seed = cfg, length, seed
+
+    def __len__(self):
+        return self.length
+
+    def __getitem__(self, i: int) -> Dict[str, np.ndarray]:
+        b = synthetic_batch(self.cfg, batch_size=1,
+                            seed=(self.seed << 40) + int(i))
+        return {k: v[0] for k, v in b.items()}
+
+
 def batch_to_torch(batch: Dict[str, np.ndarray], device="cuda"
                    ) -> Dict[str, torch.Tensor]:
     """Move a :func:`synthetic_batch` to ``device`` as torch tensors."""

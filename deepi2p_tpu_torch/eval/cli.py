@@ -1,14 +1,25 @@
-"""Evaluation entry point of the port:
+"""Evaluation entry point of the port, the JAX package's ``eval.cli``
+without ``depth-dump`` (``ROADMAP.md`` A.10):
 
-    python -m deepi2p_tpu_torch.eval.cli solve --data-dir runs/dump \
-        --method frustum --img-h 384 --img-w 640 [--device cpu]
+    # 1. dump predictions from an export_npz checkpoint
+    python -m deepi2p_tpu_torch.eval.cli dump --dataset synthetic \\
+        --synthetic-preset kitti --synthetic-scene street \\
+        --checkpoint ckpts/kitti_shape_r4/latest.npz --out runs/dump \\
+        [--classify-n 8192 --classify-repeats 2] [--device cpu]
 
-``solve`` runs a registration method over a dump directory (written by
-:func:`deepi2p_tpu_torch.eval.dump.dump_predictions` or by the JAX
-package) and prints the RTE/RRE/success summary as JSON.  The flags are
-the JAX package's ``eval.cli solve`` flags plus ``--device`` (default the
-card).  The ``dump`` and ``depth-dump`` subcommands need the checkpoint
-and DepthNet slices of the port and are not here yet (``ROADMAP.md`` A).
+    # 2. solve + report RTE/RRE/success
+    python -m deepi2p_tpu_torch.eval.cli solve --data-dir runs/dump \\
+        --method frustum|pnp|icp|random --img-h 160 --img-w 512 \\
+        [--device cpu]
+
+``dump`` writes the reference's npy contract (the same files as the JAX
+package's ``dump`` for the same dataset and weights) and prints the coarse
+and fine accuracy as JSON; ``solve`` runs a registration method over a
+dump directory (written by either package) and prints the summary.  The
+flags are the JAX package's plus ``--device``, whose default is the card.
+Only ``--dataset synthetic`` and ``.npz`` checkpoints are ported: the
+other datasets wait for the data slice (``ROADMAP.md`` A.11) and orbax
+directories for the training slice (A.9).
 """
 from __future__ import annotations
 
@@ -16,10 +27,44 @@ import argparse
 import json
 
 
-def main(argv=None):
-    p = argparse.ArgumentParser(description="DeepI2P port evaluation")
-    sub = p.add_subparsers(dest="cmd", required=True)
-    s = sub.add_parser("solve", help="registration over a dump directory")
+def _dump_args(d):
+    d.add_argument("--dataset", default="synthetic",
+                   choices=["oxford", "kitti", "nuscenes", "synthetic"])
+    d.add_argument("--dataroot", default="")
+    d.add_argument("--checkpoint", default="",
+                   help="export_npz file (empty: seeded weights)")
+    d.add_argument("--out", required=True)
+    d.add_argument("--batch-size", type=int, default=None)
+    d.add_argument("--max-batches", type=int, default=None)
+    d.add_argument("--points", type=int, default=None)
+    d.add_argument("--nodes", type=int, default=None)
+    d.add_argument("--img-h", type=int, default=None)
+    d.add_argument("--img-w", type=int, default=None)
+    d.add_argument("--synthetic-scene", default=None,
+                   choices=["uniform", "street"])
+    d.add_argument("--synthetic-preset", default="tiny",
+                   choices=["tiny", "kitti", "oxford", "nuscenes"],
+                   help="config preset for --dataset synthetic (must match "
+                        "the training preset)")
+    d.add_argument("--dump-len", type=int, default=16,
+                   help="synthetic dump set size")
+    d.add_argument("--save-images", action="store_true",
+                   help="also save {prefix}_img.npy")
+    d.add_argument("--save-probs", action="store_true",
+                   help="also save {prefix}_p.npy inside probabilities")
+    d.add_argument("--inside-threshold", type=float, default=None,
+                   help="coarse decision p_inside > t instead of argmax")
+    d.add_argument("--classify-n", type=int, default=0,
+                   help="classify at this trained point count on shuffled "
+                        "subsets and average per-point probabilities "
+                        "(eval.dump.SubsampleEnsemble); 0 = off")
+    d.add_argument("--classify-repeats", type=int, default=1,
+                   help="average over this many independent covers")
+    d.add_argument("--device", default="cuda",
+                   help="torch device of the detector (default: the card)")
+
+
+def _solve_args(s):
     s.add_argument("--data-dir", required=True)
     s.add_argument("--method", default="frustum",
                    choices=["frustum", "pnp", "icp", "random"])
@@ -50,8 +95,64 @@ def main(argv=None):
     s.add_argument("--device", default="cuda",
                    help="torch device of the solvers (default: the card; "
                         "'cpu' runs the kernels' plain versions)")
-    args = p.parse_args(argv)
 
+
+def dump(args):
+    from .. import config as config_mod
+    from ..data import BatchLoader, SyntheticDataset
+    from ..train.checkpoint import load_detector_npz
+    from ..train.engine import Engine
+    from .dump import SubsampleEnsemble, dump_predictions
+
+    if args.dataset != "synthetic":
+        raise SystemExit(f"--dataset {args.dataset} is not ported yet: the "
+                         "real loaders wait for ROADMAP.md A.11")
+    if args.checkpoint and not args.checkpoint.endswith(".npz"):
+        raise SystemExit(f"--checkpoint {args.checkpoint}: only export_npz "
+                         ".npz files are read; orbax directories wait for "
+                         "ROADMAP.md A.9")
+    maker = {"tiny": config_mod.tiny, "kitti": config_mod.kitti,
+             "oxford": config_mod.oxford,
+             "nuscenes": config_mod.nuscenes}[args.synthetic_preset]
+    overrides = {}
+    if args.batch_size:
+        overrides["batch_size"] = args.batch_size
+    if args.points:
+        overrides["input_pt_num"] = args.points
+    if args.nodes:
+        overrides["node_a_num"] = args.nodes
+        overrides["node_b_num"] = args.nodes
+        overrides["k_ab"] = min(maker().k_ab, args.nodes)
+    if args.img_h:
+        overrides["img_H"] = args.img_h
+    if args.img_w:
+        overrides["img_W"] = args.img_w
+    if args.synthetic_scene:
+        overrides["synthetic_scene"] = args.synthetic_scene
+    cfg = maker(**overrides)
+    ds = SyntheticDataset(cfg, length=args.dump_len, seed=7)
+
+    # --classify-n: the network runs at its trained point count on shuffled
+    # subsets; the dump (cloud, labels) stays at cfg.input_pt_num
+    ecfg = (cfg.replace(input_pt_num=args.classify_n) if args.classify_n
+            else cfg)
+    engine = Engine(ecfg, device=args.device)
+    state = engine.init_state(seed=0)
+    if args.checkpoint:
+        load_detector_npz(state, args.checkpoint)
+    if args.classify_n:
+        engine = SubsampleEnsemble(engine, seed=0,
+                                   repeats=args.classify_repeats)
+    coarse_acc, fine_acc = dump_predictions(
+        engine, BatchLoader(ds, cfg.batch_size), cfg, args.out, state=state,
+        max_batches=args.max_batches, save_images=args.save_images,
+        inside_threshold=args.inside_threshold, save_probs=args.save_probs)
+    out = {"coarse_accuracy": coarse_acc, "fine_accuracy": fine_acc}
+    print(json.dumps(out))
+    return out
+
+
+def solve(args):
     from .harness import evaluate_registration
     summ = evaluate_registration(
         args.data_dir, method=args.method, H=args.img_h, W=args.img_w,
@@ -64,6 +165,17 @@ def main(argv=None):
         icp_seed=args.icp_seed, device=args.device)
     print(json.dumps(summ, indent=2))
     return summ
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description="DeepI2P port evaluation")
+    sub = p.add_subparsers(dest="cmd", required=True)
+    _dump_args(sub.add_parser("dump",
+                              help="inference dump in the npy contract"))
+    _solve_args(sub.add_parser("solve",
+                               help="registration over a dump directory"))
+    args = p.parse_args(argv)
+    return dump(args) if args.cmd == "dump" else solve(args)
 
 
 if __name__ == "__main__":

@@ -21,9 +21,9 @@ import numpy as np
 import torch
 
 from ..config import Config
+from ..models.detector import INPUT_KEYS
 from ..ops.projection import generate_labels
-
-INPUT_KEYS = ("pc", "intensity", "sn", "node_a", "node_b", "img")
+from ..train.engine import Engine
 
 
 def save_sample_dump(out_dir: str, prefix: str, *, pc: np.ndarray,
@@ -68,51 +68,156 @@ def list_dump_prefixes(data_dir: str):
     return sorted(names)
 
 
+class SubsampleEnsemble:
+    """Subset-ensemble inference, the JAX package's ``SubsampleEnsemble``
+    (``eval/dump.py:71-190``): classify an N-point cloud with a network
+    trained at ``sub_n = cfg.input_pt_num < N`` points.
+
+    Each of ``repeats`` covers splits every cloud into ``ceil(N / sub_n)``
+    shuffled subsets of exactly ``sub_n`` points (a permutation padded by
+    wrapping around), draws the nodes from each subset, classifies each
+    subset at the trained density and averages the per-point inside
+    probabilities over the takes that hold the point.  With an engine that
+    has ``infer_probs_fine`` the fine decision is the argmax of the
+    accumulated per-cell softmax; otherwise the last take's fine cell.
+
+    The draws come from ``numpy.random.default_rng(seed)`` in the JAX
+    package's order (the per-sample permutations of every cover, then two
+    node draws per take), so the same seed gives the JAX package's subsets
+    and nodes.  The gathers and the accumulation run on the engine's
+    device.  It exposes the engine's ``infer_probs`` / ``infer``, so
+    :func:`dump_predictions` takes it as the engine.
+    """
+
+    def __init__(self, engine, *, seed: int = 0, repeats: int = 1):
+        self.engine = engine
+        self.cfg = engine.cfg
+        self.device = getattr(engine, "device", torch.device("cpu"))
+        self.repeats = max(1, int(repeats))
+        self._rng = np.random.default_rng(seed)
+
+    @torch.no_grad()
+    def infer_probs(self, state, batch):
+        """(p_inside (B, N) f32, fine (B, N) int64 or None), on the
+        engine's device."""
+        dev = self.device
+        inputs = {k: torch.as_tensor(v, device=dev)
+                  for k, v in batch.items()}
+        B, N = inputs["pc"].shape[:2]
+        sub_n = self.cfg.input_pt_num
+        n_sub = -(-N // sub_n)
+        ma, mb = self.cfg.node_a_num, self.cfg.node_b_num
+
+        p_sum = torch.zeros(B, N, dtype=torch.float64, device=dev)
+        cnt = torch.zeros(B, N, dtype=torch.float64, device=dev)
+        fine = torch.zeros(B, N, dtype=torch.int64, device=dev)
+        fine_sum = None
+        use_fine_probs = hasattr(self.engine, "infer_probs_fine")
+        have_fine = False
+        takes = []
+        for _ in range(self.repeats):
+            idx = np.stack([self._rng.permutation(N) for _ in range(B)])
+            total = n_sub * sub_n
+            reps = -(-total // N)
+            idx = np.tile(idx, (1, reps))[:, :total].reshape(B, n_sub, sub_n)
+            takes.extend(idx[:, s] for s in range(n_sub))
+
+        def gather(x, ix):
+            return torch.gather(x, 1, ix[..., None].expand(-1, -1,
+                                                           x.shape[-1]))
+
+        for take_np in takes:
+            take = torch.as_tensor(take_np, device=dev)
+            na = torch.as_tensor(self._rng.integers(0, sub_n, (B, ma)),
+                                 device=dev)
+            nb = torch.as_tensor(self._rng.integers(0, sub_n, (B, mb)),
+                                 device=dev)
+            sub = dict(inputs)
+            for k in ("pc", "intensity", "sn"):
+                sub[k] = gather(inputs[k], take)
+            sub["node_a"] = gather(sub["pc"], na)
+            sub["node_b"] = gather(sub["pc"], nb)
+            if use_fine_probs:
+                p_s, fine_s = self.engine.infer_probs_fine(state, sub)
+            else:
+                p_s, fine_s = self.engine.infer_probs(state, sub)
+            p_s = torch.as_tensor(p_s, device=dev).to(torch.float64)
+            # read-modify-write puts, as the JAX package's put_along_axis:
+            # a point twice in one take (sub_n > N) counts once there
+            cnt.scatter_(1, take, torch.gather(cnt, 1, take) + 1.0)
+            p_sum.scatter_(1, take, torch.gather(p_sum, 1, take) + p_s)
+            if fine_s is None:
+                continue
+            have_fine = True
+            fine_s = torch.as_tensor(fine_s, device=dev)
+            if use_fine_probs:
+                fine_p = fine_s.to(torch.float32)
+                if fine_sum is None:
+                    fine_sum = torch.zeros(B, N, fine_p.shape[-1],
+                                           dtype=torch.float32, device=dev)
+                ix = take[..., None].expand(-1, -1, fine_p.shape[-1])
+                fine_sum.scatter_(1, ix, torch.gather(fine_sum, 1, ix)
+                                  + fine_p)
+            else:
+                fine.scatter_(1, take, fine_s.to(torch.int64))
+        p = (p_sum / torch.clamp(cnt, min=1.0)).to(torch.float32)
+        if fine_sum is not None:
+            fine = torch.argmax(fine_sum, dim=-1)
+        return p, (fine if have_fine else None)
+
+    def infer(self, state, batch):
+        """The probability thresholded at 0.5 (the binary argmax of the
+        averaged softmax), and the fine decision."""
+        p, fine = self.infer_probs(state, batch)
+        return (p > 0.5).to(torch.int64), fine
+
+
 @torch.no_grad()
-def dump_predictions(model: torch.nn.Module, batches: Iterable[Dict],
-                     cfg: Config, out_dir: str, *,
+def dump_predictions(engine, batches: Iterable[Dict], cfg: Config,
+                     out_dir: str, *, state=None,
                      max_batches: Optional[int] = None,
                      save_images: bool = False,
                      inside_threshold: Optional[float] = None,
                      save_probs: bool = False):
-    """Run the detector over ``batches`` and write per-sample dumps.
+    """Run inference over ``batches`` and write per-sample dumps, as the
+    JAX package's ``dump_predictions`` (``eval/dump.py:193-``).
 
-    ``model`` is the port's ``KeypointDetector`` (on the card or the CPU;
-    each batch, a dict of arrays as ``synthetic_batch`` gives them, is
-    moved to its device).  The coarse decision is the argmax of the coarse
-    logits and the fine one the argmax of the fine logits, as the JAX
-    ``Engine._infer_impl`` (``engine.py:167-176``);
-    ``inside_threshold`` (0..1) replaces the coarse argmax with
-    ``p_inside > threshold``.  ``save_probs`` also writes
-    ``{prefix}_p.npy`` (the coarse softmax's inside probability, and the
-    coarse decision becomes ``p_inside > 0.5``, the same argmax),
-    ``save_images`` ``{prefix}_img.npy``.
+    ``engine`` is an :class:`~deepi2p_tpu_torch.train.engine.Engine` or a
+    :class:`SubsampleEnsemble` with its ``state`` (the detector), or a bare
+    ``KeypointDetector``, which then is the state of an engine on its
+    device.  Each batch is a dict of arrays as ``synthetic_batch`` or the
+    ``BatchLoader`` gives them.  The coarse decision is the engine's
+    argmax; ``inside_threshold`` (0..1) replaces it with ``p_inside >
+    threshold``.  ``save_probs`` also writes ``{prefix}_p.npy`` (the
+    inside probability; the decision is then ``p_inside > 0.5``, the same
+    argmax from one forward), ``save_images`` ``{prefix}_img.npy``.
 
     Returns (coarse_accuracy, fine_accuracy) over the dumped set
     (``visualize_and_save_data.py:141-148,216-217``).
     """
+    if isinstance(engine, torch.nn.Module):
+        state = engine
+        engine = Engine(state.cfg, device=next(state.parameters()).device)
+    dev = engine.device
     os.makedirs(out_dir, exist_ok=True)
-    dev = next(model.parameters()).device
     n_total = n_coarse_ok = n_inside = n_fine_ok = 0
     idx = 0
     for bi, batch in enumerate(batches):
         if max_batches is not None and bi >= max_batches:
             break
-        tb = {k: torch.as_tensor(np.asarray(batch[k])).to(dev)
-              for k in (*INPUT_KEYS, "P", "K")}
-        coarse_logits, fine_logits = model(*(tb[k] for k in INPUT_KEYS))
-        fine_pred = torch.argmax(fine_logits, dim=-1)
         p_inside = None
         if inside_threshold is not None or save_probs:
-            p_inside = torch.softmax(coarse_logits.float(), dim=-1)[..., 1]
+            p_inside, fine_pred = engine.infer_probs(state, batch)
         if inside_threshold is not None:
             coarse_pred = p_inside > inside_threshold
         elif p_inside is not None:
             coarse_pred = p_inside > 0.5
         else:
-            coarse_pred = torch.argmax(coarse_logits, dim=-1)
-        labels = generate_labels(tb["pc"], tb["P"], tb["K"], cfg.img_H,
-                                 cfg.img_W, cfg.img_fine_resolution_scale)
+            coarse_pred, fine_pred = engine.infer(state, batch)
+        labels = generate_labels(
+            *(torch.as_tensor(np.asarray(batch[k]), device=dev)
+              for k in ("pc", "P", "K")),
+            cfg.img_H, cfg.img_W, cfg.img_fine_resolution_scale)
         coarse_pred = coarse_pred.to(torch.int32).cpu().numpy()
         fine_pred = fine_pred.to(torch.int32).cpu().numpy()
         coarse_lab = labels.coarse.cpu().numpy()

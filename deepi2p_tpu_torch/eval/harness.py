@@ -6,12 +6,13 @@ solver over all pairs, compute RTE/RRE and the RTE < 2 m & RRE < 5 deg
 success rate, and optionally save ``P_pred_all_np.npy`` /
 ``P_gt_all_np.npy`` / ``cost_all_np.npy`` like the reference.
 
-Methods: ``frustum`` (the frustum LM, kernel on the card), ``icp``
-(batched ICP, 1-NN kernel on the card) and ``random`` (numpy draws, the
-same as the JAX package's for the same seed).  ``pnp`` is not ported yet
-(``ROADMAP.md`` A, slice 5).  The frustum and ICP inits come from CPU
-``torch.Generator``s seeded from ``seed``, so the card and the CPU draw
-the same inits; they are not ``jax.random``'s numbers.
+Methods: ``frustum`` (the frustum LM, kernel on the card), ``pnp``
+(RANSAC PnP over the fine labels, PyTorch ops), ``icp`` (batched ICP,
+1-NN kernel on the card) and ``random`` (numpy draws, the same as the JAX
+package's for the same seed).  The frustum and ICP inits and the PnP
+hypotheses' minimal sets come from CPU ``torch.Generator``s seeded from
+``seed``, so the card and the CPU draw the same; they are not
+``jax.random``'s numbers.
 """
 from __future__ import annotations
 
@@ -25,9 +26,10 @@ from ..device import resolve_device
 from ..register.frustum import solve_frustum_batch
 from ..register.icp import icp_batch
 from ..register.metrics import pose_diff_np, registration_summary
+from ..register.pnp import solve_pnp_batch
 from .dump import list_dump_prefixes, load_dump
 
-METHODS = ("frustum", "icp", "random")
+METHODS = ("frustum", "pnp", "icp", "random")
 
 
 def random_pose_baseline(n: int, rng: np.random.Generator, *,
@@ -64,11 +66,13 @@ def evaluate_registration(data_dir: str, *, method: str = "frustum",
                           confidence_gamma: Optional[float] = None,
                           icp_coarse_threshold: Optional[float] = None,
                           icp_seed: str = "none",
+                          probe_stride: Optional[int] = None,
+                          survivors: Optional[int] = None,
                           device="cuda") -> Dict[str, float]:
     """Run a solver over a dump directory and summarise RTE/RRE/success.
 
     Args:
-      method: 'frustum' | 'icp' | 'random' ('pnp' raises: not ported).
+      method: 'frustum' | 'pnp' | 'icp' | 'random'.
       stride: evaluate every ``stride``-th pair.
       use_labels: solve from the GT labels instead of the predictions
         (the reference's solver oracle mode).
@@ -85,13 +89,12 @@ def evaluate_registration(data_dir: str, *, method: str = "frustum",
       icp_coarse_threshold: multi-scale ICP anneal start in metres.
       icp_seed: 'none' (blind draws) or 'frustum' (half the ICP inits
         around the frustum solution from the same predictions).
+      probe_stride / survivors: successive-halving knobs of
+        :func:`solve_frustum_batch` (frustum only), forwarded only when
+        given, as the JAX harness does.
       device: where the solvers run (the card unless the caller names the
         CPU).
     """
-    if method == "pnp":
-        raise NotImplementedError(
-            "method='pnp' is not ported yet: register/pnp.py is slice 5 "
-            "of ROADMAP.md A")
     if method not in METHODS:
         raise ValueError(f"method must be one of {METHODS}, got {method!r}")
     dev = resolve_device(device)
@@ -120,23 +123,32 @@ def evaluate_registration(data_dir: str, *, method: str = "frustum",
 
     if method == "random":
         P_pred_all = random_pose_baseline(n, np.random.default_rng(seed))
-    elif method == "frustum":
+    elif method in ("frustum", "pnp"):
         gen = torch.Generator().manual_seed(seed)
         field = "coarse_label" if use_labels else "coarse_pred"
+        ffield = "fine_label" if use_labels else "fine_pred"
+        knobs = {k: v for k, v in (("probe_stride", probe_stride),
+                                   ("survivors", survivors)) if v is not None}
         for start, chunk in chunks:
-            pw = None
-            if confidence_gamma is not None:
-                p_in = np.stack([d["p_inside"] for d in chunk])
-                pw = torch.as_tensor(np.abs(2.0 * p_in - 1.0)
-                                     ** confidence_gamma).to(dev,
-                                                             torch.float32)
-            P, cost = solve_frustum_batch(
-                _stack(chunk, "pc", dev), _stack(chunk, field, dev,
-                                                 torch.int64),
-                _stack(chunk, "K", dev), H=H, W=W, generator=gen,
-                n_inits=n_inits, max_iter=max_iter,
-                outside_weight=outside_weight,
-                edge_margin_px=edge_margin_px, point_weights=pw)
+            pc = _stack(chunk, "pc", dev)
+            coarse = _stack(chunk, field, dev, torch.int64)
+            K = _stack(chunk, "K", dev)
+            if method == "pnp":
+                res = solve_pnp_batch(
+                    pc, coarse, _stack(chunk, ffield, dev, torch.int64), K,
+                    gen, W_fine=int(round(W / 32)))
+                P, cost = res.P, res.cost
+            else:
+                pw = None
+                if confidence_gamma is not None:
+                    p_in = np.stack([d["p_inside"] for d in chunk])
+                    pw = torch.as_tensor(np.abs(2.0 * p_in - 1.0)
+                                         ** confidence_gamma).to(
+                                             dev, torch.float32)
+                P, cost = solve_frustum_batch(
+                    pc, coarse, K, H=H, W=W, generator=gen, n_inits=n_inits,
+                    max_iter=max_iter, outside_weight=outside_weight,
+                    edge_margin_px=edge_margin_px, point_weights=pw, **knobs)
             P_pred_all[start:start + len(chunk)] = P.cpu().numpy()
             cost_all[start:start + len(chunk)] = cost.cpu().numpy()
     else:

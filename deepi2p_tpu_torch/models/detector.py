@@ -24,6 +24,8 @@ from .layers import PointNetMLP, init_params_
 from .pc_encoder import PCEncoder
 
 IMG_CHANNELS = (256, 512, 512)     # resnet34: s16, s32, global
+# the forward's inputs, in its argument order
+INPUT_KEYS = ("pc", "intensity", "sn", "node_a", "node_b", "img")
 
 
 class KeypointDetector(nn.Module):

@@ -30,20 +30,21 @@ from .frustum_cuda import _chol_solve, _clip_t, lm_solve
 I_BLK = 8          # init block of the JAX package's Pallas kernel
 
 
+def skew(v: torch.Tensor) -> torch.Tensor:
+    """Cross-product matrices (..., 3, 3) of vectors (..., 3)."""
+    z = torch.zeros_like(v[..., 0])
+    return torch.stack([
+        torch.stack([z, -v[..., 2], v[..., 1]], -1),
+        torch.stack([v[..., 2], z, -v[..., 0]], -1),
+        torch.stack([-v[..., 1], v[..., 0], z], -1)], -2)
+
+
 def rodrigues(aa: torch.Tensor) -> torch.Tensor:
     """Angle-axis (..., 3) -> rotation matrices (..., 3, 3), with the
     first-order form near zero."""
     theta2 = torch.sum(aa * aa, dim=-1)
     theta = torch.sqrt(theta2 + 1e-24)
     k = aa / theta[..., None]
-    z = torch.zeros_like(theta)
-
-    def skew(v):
-        return torch.stack([
-            torch.stack([z, -v[..., 2], v[..., 1]], -1),
-            torch.stack([v[..., 2], z, -v[..., 0]], -1),
-            torch.stack([-v[..., 1], v[..., 0], z], -1)], -2)
-
     K = skew(k)
     s, c = torch.sin(theta)[..., None, None], torch.cos(theta)[..., None, None]
     eye = torch.eye(3, dtype=aa.dtype, device=aa.device)
@@ -265,20 +266,26 @@ def solve_frustum_batch(pc, pred_inside, K, *, H: int, W: int,
                         n_inits: int = 60, max_iter: int = 32,
                         t_lb=(-5.0, -0.1, -10.0), t_ub=(5.0, 0.1, 10.0),
                         is_2d: bool = True, solver_stride: int = 1,
-                        theta0=None, outside_weight: float = 1.0,
+                        theta0=None, probe_stride: Optional[int] = None,
+                        survivors: Optional[int] = None,
+                        outside_weight: float = 1.0,
                         point_weights=None, edge_margin_px: float = 0.0):
     """Multi-init frustum solve for a batch of pairs.
 
     Args:
       pc (B, N, 3) f32, pred_inside (B, N) {0,1}, K (B, 3, 3), all on one
       device; the LM phases run on the card for CUDA tensors.
-      generator: draws the inits when ``theta0`` is not given.
+      generator: draws the inits (:func:`sample_inits`, its defaults)
+        when ``theta0`` is not given.
       is_2d: the 2-D mode (``[ry, t]``) or the 6-DoF mode (``[aa, t]``).
       theta0: optional (B, I, P) inits (replays, and parity with the JAX
         package, whose ``jax.random`` draws differ from torch's).
-      solver_stride: subsample of the points fed to the LM; the probe
-        takes every ``max(1, 4 // solver_stride)``-th of those (every 4th
-        point in total).
+      solver_stride: subsample of the points fed to the LM.
+      probe_stride: further subsample of the probe phase, which only ranks
+        the inits (default ``max(1, 4 // solver_stride)``: every 4th point
+        in total); the refine runs at ``solver_stride``.
+      survivors: inits that graduate from the probe to the refine, rounded
+        down to a multiple of 8, at least 8 (default: the best eighth).
       outside_weight / point_weights (B, N) / edge_margin_px: a weighted or
         margin-relaxed cost; any of them routes the solve to
         :func:`lm_solve_generic` (full budget for every init, no halving).
@@ -286,7 +293,8 @@ def solve_frustum_batch(pc, pred_inside, K, *, H: int, W: int,
       (P (B, 4, 4), cost (B,)); a pair with no inside points gets the
       identity pose and cost 1e4.
     """
-    probe_stride = max(1, 4 // solver_stride)
+    if probe_stride is None:
+        probe_stride = max(1, 4 // solver_stride)
     pc = pc.float()
     K = K.float().contiguous()
     ang, valid = initial_guess(pc, pred_inside)
@@ -329,7 +337,8 @@ def solve_frustum_batch(pc, pred_inside, K, *, H: int, W: int,
             thetas, costs = lm_solve(sub(pc_s, ps), sub(lab_s, ps),
                                      sub(val_s, ps), K, theta0, t_lb, t_ub,
                                      max_iter=probe_iter, **kw)
-            keep = max((I // 8) // I_BLK * I_BLK, I_BLK)     # best eighth
+            keep = I // 8 if survivors is None else min(survivors, I)
+            keep = max(keep // I_BLK * I_BLK, I_BLK)
             top = torch.argsort(costs, dim=1, stable=True)[:, :keep]
             theta_top = torch.gather(thetas, 1,
                                      top[:, :, None].expand(-1, -1, P_dim))

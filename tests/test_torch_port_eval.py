@@ -176,8 +176,10 @@ def test_harness_options_and_refusals(tmp_path):
         assert (save / f).is_file()
     assert np.isfinite(evaluate_registration(str(tmp_path), enu2cam=True,
                                              **kw)["rre_mean"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        evaluate_registration(str(tmp_path), method="pnp", **kw)
+    summ = evaluate_registration(str(tmp_path), method="pnp", **kw)
+    assert summ["num_pairs"] == 2 and np.isfinite(summ["rte_mean"])
+    with pytest.raises(ValueError, match="method"):
+        evaluate_registration(str(tmp_path), method="lsq", **kw)
     with pytest.raises(RuntimeError, match="CUDA"):
         evaluate_registration(str(tmp_path), H=H, W=W)
 

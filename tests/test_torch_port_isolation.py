@@ -33,7 +33,8 @@ leaked = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
 assert not leaked, leaked
 assert len(names) >= 15, names
 for new in ("ops.projection", "register.icp", "eval.dump", "eval.depth",
-            "eval.harness", "eval.cli", "data.nuscenes"):
+            "eval.harness", "eval.cli", "data.nuscenes", "train.checkpoint",
+            "train.engine", "data.loader", "register.pnp"):
     assert "deepi2p_tpu_torch." + new in names, new
 
 import tempfile
@@ -45,6 +46,7 @@ from deepi2p_tpu_torch.eval.dump import save_sample_dump
 from deepi2p_tpu_torch.eval.harness import evaluate_registration
 from deepi2p_tpu_torch.models import build_detector
 from deepi2p_tpu_torch.register.icp import icp_batch
+from deepi2p_tpu_torch.train.engine import Engine
 dump_dir = tempfile.mkdtemp()
 z = np.zeros(8)
 save_sample_dump(dump_dir, "000000_00", pc=np.ones((8, 3)), coarse_pred=z,
@@ -54,7 +56,8 @@ pts = np.ones((1, 8, 3), np.float32)
 for call in (lambda: build_detector(config.tiny()),
              lambda: batch_to_torch(synthetic_batch(config.tiny())),
              lambda: evaluate_registration(dump_dir, H=8, W=8),
-             lambda: icp_batch(pts, pts, torch.Generator())):
+             lambda: icp_batch(pts, pts, torch.Generator()),
+             lambda: Engine(config.tiny())):
     try:
         call()
     except RuntimeError as e:
