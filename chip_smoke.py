@@ -96,9 +96,27 @@ announced as ``phase=<name> start|done t=<seconds>``:
     and ``sample_inits`` from one seeded CPU generator must give equal
     inits with ``ang`` on the card and on the CPU.
 
+14. ``train``: the training path, with grad on, at the committed
+    KITTI-shaped run (``config.kitti`` street scenes, N=8192, 128+128
+    nodes, B=8, 160x512, bf16 activations, f32 parameters, seeded
+    weights): the kNN kernel against its plain version at the training
+    forward's four calls; two batches made before the clock, two warm-up
+    steps, then ten timed ``Engine.train_step``s ending in a CUDA sync
+    (ms/step, samples/s, peak memory), finite losses and exactly 4 kNN
+    launches per step; twenty steps on one batch must lower the loss;
+    ``CheckpointManager`` save -> restore and ``export_npz`` ->
+    ``warm_start_npz`` into a temporary directory, exact; then one step
+    (B=2) on the card against the same step on the CPU from the same
+    weights, batch and dropout uniforms, in f32 and in a float64 copy of
+    the model (``train_reference``: f32 loss and metrics within 1e-5,
+    running statistics within 1e-5, the whole gradient within 5% of
+    float64's; float64 loss, metrics, statistics and every gradient leaf
+    within 1e-8).
+
 Then a ``kernels=`` line, one JSON line of per-kernel numbers (launches
 from the path each kernel serves: ``slice`` for kNN and the 2-D LM,
-``solve6`` for the 6-DoF LM, ``eval`` for the 1-NN), the card's
+``solve6`` for the 6-DoF LM, ``eval`` for the 1-NN; the kNN entry also
+carries ``train_launches_per_step``), the card's
 ``nvidia-smi`` name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``.  A watchdog ends a hung run after
 420 s with a traceback and a nonzero exit; any failed check exits nonzero
@@ -150,6 +168,29 @@ SERVE_REPEATS = 2
 PNP_LABELS_JAX_SUCCESS = 8
 PNP_POSE_ATOL = 1e-3
 PNP_THRESH_BAND = 1e-3
+
+# the train phase: the committed KITTI-shaped training run
+# (scripts/train_kitti_shape.sh: config.kitti street, N=8192, 128+128
+# nodes, B=8, 160x512, bf16 activations, f32 parameters)
+TRAIN_N = 8192
+TRAIN_NODES = 128
+TRAIN_WARMUP = 2
+TRAIN_TIMED = 10
+TRAIN_LEARN = 20
+TRAIN_REF_BATCH = 2      # the card-against-CPU steps
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_STATS_RTOL = 1e-5
+# the f32 step's whole gradient against the float64 one: a gross check
+# only, since f32 does not resolve this network's gradient leaf by leaf
+# (train_reference)
+TRAIN_F32_GRAD_RTOL = 5e-2
+# the float64 copy: each gradient leaf, the loss and metrics, and the
+# running statistics, card against CPU
+TRAIN_F64_RTOL = 1e-8
+# a gradient leaf both devices give as rounding noise (zero in exact
+# arithmetic: biases that feed train-mode batch norm) stays below this
+# fraction of the whole gradient's norm
+TRAIN_NOISE_LEAF = 1e-6
 
 KNN_RTOL = 1e-5
 LM_COST_RTOL = 1e-4
@@ -1320,6 +1361,215 @@ def reference_phase(torch):
                 f"reference {tag} cost rel err {crel:.3g}")
 
 
+def train_state_equal(torch, a, b) -> bool:
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    return (a.step == b.step and all(torch.equal(sa[k], sb[k]) for k in sa)
+            and all(torch.equal(x, y) for x, y in zip(a.mu + a.nu,
+                                                      b.mu + b.nu)))
+
+
+def ref_step(torch, engine, state, raw, seed: int):
+    """One step's loss, metrics, gradients and running statistics (the
+    last two on the CPU in float64); dropout drawn from a CPU generator
+    of ``seed``."""
+    loss, metrics, grads = engine.loss_and_grads(
+        state, raw, torch.Generator().manual_seed(seed))
+    return (float(loss), {k: float(v) for k, v in metrics.items()},
+            [g.detach().cpu().double() for g in grads],
+            {k: v.detach().cpu().double()
+             for k, v in state.model.state_dict().items() if "running" in k})
+
+
+def train_reference(torch, config):
+    """One step (B=2, N=8192, 160x512, dropout uniforms from one CPU
+    generator) on the card and on the CPU from the same weights and batch,
+    in f32 (TF32 off) and in a float64 copy of the model
+    (``compute_dtype="float64"``, weights in f64; the kNN kernel and the
+    labels stay f32, as they are data).
+
+    f32 does not resolve this network's gradient leaf by leaf: its
+    rounding flips ReLU masks and max-pool winners next to ties, and each
+    flip moves the gradient, so two f32 evaluations that differ only in
+    their sum order (the card's and the CPU's) differ by up to about a
+    percent in a leaf, and by how much in which leaf is chance.  So the f32 step holds the loss and metrics within
+    TRAIN_LOSS_RTOL and the running statistics within TRAIN_STATS_RTOL of
+    the CPU's, and its whole gradient within TRAIN_F32_GRAD_RTOL of the
+    float64 one; the float64 copy, where no rounding reaches a tie, holds
+    every gradient leaf, the loss, the metrics and the running statistics
+    within TRAIN_F64_RTOL of the CPU's.  Leaves that are rounding noise
+    on both devices stay below TRAIN_NOISE_LEAF of the whole gradient."""
+    from deepi2p_tpu_torch.data import synthetic_batch
+    from deepi2p_tpu_torch.ops.knn_cuda import knn_cuda
+    from deepi2p_tpu_torch.train.engine import Engine
+
+    runs = {}
+    for dtype in ("float32", "float64"):
+        cfg = config.kitti(synthetic_scene="street", input_pt_num=TRAIN_N,
+                           node_a_num=TRAIN_NODES, node_b_num=TRAIN_NODES,
+                           batch_size=TRAIN_REF_BATCH, compute_dtype=dtype)
+        raw = synthetic_batch(cfg, seed=2)
+        for dev in ("cuda", "cpu"):
+            engine = Engine(cfg, device=dev)
+            state = engine.init_state(seed=3)
+            if dtype == "float64":
+                state.model.double()
+            before = knn_cuda.launches
+            runs[dev, dtype] = ref_step(torch, engine, state, raw, seed=4)
+            if dev == "cuda":
+                require(knn_cuda.launches - before == 4,
+                        f"train: the card's {dtype} reference step did not "
+                        "launch the kNN kernel 4 times")
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm().clamp(min=1e-300))
+
+    def flat(r):
+        return torch.cat([g.reshape(-1) for g in r[2]])
+
+    for dtype, tol in (("float32", TRAIN_LOSS_RTOL),
+                       ("float64", TRAIN_F64_RTOL)):
+        card, cpu = runs["cuda", dtype], runs["cpu", dtype]
+        for k, v in {"loss": cpu[0], **cpu[1]}.items():
+            got = card[0] if k == "loss" else card[1][k]
+            r = abs(got - v) / max(abs(v), 1e-30)
+            require(r <= tol, f"train: {dtype} card {k} {got!r} vs CPU "
+                    f"{v!r} (rel {r:.3g} > {tol:g})")
+        stats = max(rel(card[3][k], cpu[3][k]) for k in cpu[3])
+        stol = TRAIN_STATS_RTOL if dtype == "float32" else TRAIN_F64_RTOL
+        require(stats <= stol, f"train: {dtype} running statistics rel "
+                f"{stats:.3g} > {stol:g}")
+        log(f"train: {dtype} step card vs CPU (B={TRAIN_REF_BATCH}, "
+            f"N={TRAIN_N}, {cfg.img_H}x{cfg.img_W}): loss {card[0]!r} vs "
+            f"{cpu[0]!r} (rel {abs(card[0] - cpu[0]) / abs(cpu[0]):.3g}); "
+            f"running statistics max rel {stats:.3g}")
+
+    ref = runs["cpu", "float64"]
+    total = float(flat(ref).norm())
+    noise, leaves = [], []
+    for i, g in enumerate(ref[2]):
+        if all(float(r[2][i].norm()) <= TRAIN_NOISE_LEAF * total
+               for r in runs.values()):
+            noise.append(i)
+        else:
+            leaves.append(i)
+
+    def leaf_errs(a, b):
+        return sorted(rel(a[2][i], b[2][i]) for i in leaves)
+    readings = {
+        "card f64 vs CPU f64": leaf_errs(runs["cuda", "float64"], ref),
+        "card f32 vs CPU f32": leaf_errs(runs["cuda", "float32"],
+                                         runs["cpu", "float32"]),
+        "card f32 vs f64": leaf_errs(runs["cuda", "float32"], ref),
+        "CPU f32 vs f64": leaf_errs(runs["cpu", "float32"], ref)}
+    whole = {dev: rel(flat(runs[dev, "float32"]), flat(ref))
+             for dev in ("cuda", "cpu")}
+    log(f"train: gradients of {len(leaves)} leaves ({len(noise)} rounding "
+        "noise on every run), rel norm per leaf: " + "; ".join(
+            f"{k} max {e[-1]:.3g} median {e[len(e) // 2]:.3g} over 1e-4 "
+            f"{sum(x > 1e-4 for x in e)}" for k, e in readings.items())
+        + f"; whole f32 gradient vs f64: card {whole['cuda']:.3g}, CPU "
+        f"{whole['cpu']:.3g}")
+    worst = readings["card f64 vs CPU f64"][-1]
+    require(worst <= TRAIN_F64_RTOL, f"train: a float64 gradient leaf, card "
+            f"vs CPU, rel {worst:.3g} > {TRAIN_F64_RTOL:g}")
+    require(whole["cuda"] <= TRAIN_F32_GRAD_RTOL,
+            f"train: the card's whole f32 gradient rel {whole['cuda']:.3g} "
+            f"from float64 > {TRAIN_F32_GRAD_RTOL:g}")
+
+
+def train_phase(torch):
+    """The training path at the committed KITTI-shaped run: timed bf16
+    steps, kNN launches per step, the kNN at the training forward's four
+    calls, learning on one batch, checkpoints, and the card against the
+    CPU."""
+    from deepi2p_tpu_torch import config
+    from deepi2p_tpu_torch.data import batch_to_torch, synthetic_batch
+    from deepi2p_tpu_torch.ops.knn_cuda import knn_cuda
+    from deepi2p_tpu_torch.profile_knn import forward_calls
+    from deepi2p_tpu_torch.train.checkpoint import (CheckpointManager,
+                                                    export_npz,
+                                                    warm_start_npz)
+    from deepi2p_tpu_torch.train.engine import Engine
+
+    cfg = config.kitti(synthetic_scene="street", input_pt_num=TRAIN_N,
+                       node_a_num=TRAIN_NODES, node_b_num=TRAIN_NODES)
+    B = cfg.batch_size
+    require(B == 8 and cfg.compute_dtype == "bfloat16",
+            "train: the KITTI preset is B=8, bf16")
+    t = time.perf_counter()
+    batches = [batch_to_torch(synthetic_batch(cfg, seed=s), device="cuda")
+               for s in (10, 11)]
+    log(f"train: two street batches of B={B}, N={TRAIN_N} generated in "
+        f"{time.perf_counter() - t:.2f} s (before the clock)")
+    err = max(check_knn(torch, f"train {name}", q, db, k)
+              for name, q, db, k in forward_calls(batches[0], cfg))
+
+    engine = Engine(cfg, steps_per_epoch=1000, device="cuda")
+    state = engine.init_state(seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for i in range(TRAIN_WARMUP):
+        engine.train_step(state, batches[i % 2], gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    knn_cuda.launches = 0
+    losses = []
+    t = time.perf_counter()
+    for i in range(TRAIN_TIMED):
+        _, metrics = engine.train_step(state, batches[i % 2], gen)
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    launches = knn_cuda.launches
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [float(x) for x in losses]
+    require(all(math.isfinite(x) for x in losses),
+            f"train: non-finite loss in {losses}")
+    require(launches == 4 * TRAIN_TIMED,
+            f"train: {launches} kNN launches in {TRAIN_TIMED} steps, not "
+            f"{4 * TRAIN_TIMED}")
+    ms = dt / TRAIN_TIMED * 1e3
+    log(f"train: {TRAIN_TIMED} bf16 steps (B={B}, N={TRAIN_N}, "
+        f"{cfg.img_H}x{cfg.img_W}, after {TRAIN_WARMUP} warm-up): "
+        f"{ms:.3f} ms/step, {B * TRAIN_TIMED / dt:.2f} samples/s, peak "
+        f"memory {peak:.3f} GiB, kNN launches {launches} "
+        f"({launches // TRAIN_TIMED} per step); losses "
+        + " ".join(f"{x:.4f}" for x in losses))
+
+    learn = []
+    for _ in range(TRAIN_LEARN):
+        _, metrics = engine.train_step(state, batches[0], gen)
+        learn.append(metrics["loss"])
+    learn = [float(x) for x in learn]
+    require(all(math.isfinite(x) for x in learn) and learn[-1] < learn[0],
+            f"train: the loss did not fall over {TRAIN_LEARN} steps on one "
+            f"batch: {learn}")
+    log(f"train: {TRAIN_LEARN} steps on one batch: loss {learn[0]:.4f} -> "
+        f"{learn[-1]:.4f}")
+
+    with tempfile.TemporaryDirectory(prefix="deepi2p_train_") as d:
+        mgr = CheckpointManager(d, max_to_keep=2)
+        mgr.save(state)
+        other = engine.init_state(seed=1)
+        mgr.restore(other)
+        require(train_state_equal(torch, state, other),
+                "train: CheckpointManager restore differs from the save")
+        path = f"{d}/latest.npz"
+        export_npz(state, path)
+        other = warm_start_npz(engine.init_state(seed=1), path)
+        sa, sb = state.model.state_dict(), other.model.state_dict()
+        require(other.step == state.step
+                and all(torch.equal(sa[k], sb[k]) for k in sa),
+                "train: export_npz -> warm_start_npz differs")
+    log(f"train: checkpoint round trip (CheckpointManager, export_npz -> "
+        f"warm_start_npz) exact at step {state.step}")
+    del state, other, batches
+    torch.cuda.empty_cache()
+
+    train_reference(torch, config)
+    return dict(ms=ms, samples_s=B * TRAIN_TIMED / dt, peak_gib=peak,
+                launches_per_step=launches // TRAIN_TIMED, knn_err=err)
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     import torch
@@ -1377,12 +1627,17 @@ def main() -> int:
             serve_phase(torch, eval_cfg, eval_raw)
         with phase("reference"):
             reference_phase(torch)
+    with torch.enable_grad(), phase("train"):
+        train = train_phase(torch)
 
     lm_src = "deepi2p_tpu_torch/csrc/frustum_lm.cu"
     kernels = [
         dict(name="knn", route="cuda", source="deepi2p_tpu_torch/csrc/knn.cu",
              replaces="deepi2p_tpu/ops/knn_pallas.py:60",
-             launches=launches["knn"], **knn_row),
+             launches=launches["knn"],
+             train_launches_per_step=train["launches_per_step"],
+             **{**knn_row, "max_abs_err": max(knn_row["max_abs_err"],
+                                              train["knn_err"])}),
         dict(name="lm_p4", route="cuda", source=lm_src,
              replaces="deepi2p_tpu/register/frustum_pallas.py:336",
              launches=launches["lm_solve_p4"], **lm_row),

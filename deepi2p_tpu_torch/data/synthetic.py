@@ -303,19 +303,29 @@ def synthetic_batch(cfg: Config, batch_size: int | None = None,
 
 class SyntheticDataset:
     """Indexable synthetic samples, the JAX package's ``SyntheticDataset``
-    (``data/synthetic.py:303-340``) at epoch 0: sample ``i`` is
-    ``synthetic_batch(cfg, batch_size=1, seed=(seed << 40) + i)[0]``, so
-    the same dataset seed gives the same samples in both packages."""
+    (``data/synthetic.py:303-340``): sample ``i`` is
+    ``synthetic_batch(cfg, batch_size=1, seed=(seed << 40) + epoch *
+    length + i)[0]``, so the same dataset seed gives the same samples in
+    both packages.  ``fresh=True`` makes ``set_epoch(e)`` move every index
+    to a scene no earlier epoch drew; otherwise the epoch stays 0."""
 
-    def __init__(self, cfg: Config, length: int = 16, seed: int = 0):
+    def __init__(self, cfg: Config, length: int = 16, seed: int = 0,
+                 fresh: bool = False):
         self.cfg, self.length, self.seed = cfg, length, seed
+        self.fresh = fresh
+        self.epoch = 0
+
+    def set_epoch(self, epoch: int) -> None:
+        self.epoch = int(epoch) if self.fresh else 0
 
     def __len__(self):
         return self.length
 
     def __getitem__(self, i: int) -> Dict[str, np.ndarray]:
-        b = synthetic_batch(self.cfg, batch_size=1,
-                            seed=(self.seed << 40) + int(i))
+        # the dataset seed picks a 2^40-wide block, (epoch, index) walks
+        # inside it: no train/val collisions over long fresh-scene runs
+        seed = (self.seed << 40) + self.epoch * self.length + int(i)
+        b = synthetic_batch(self.cfg, batch_size=1, seed=seed)
         return {k: v[0] for k, v in b.items()}
 
 

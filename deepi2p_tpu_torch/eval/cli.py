@@ -17,9 +17,10 @@ package's ``dump`` for the same dataset and weights) and prints the coarse
 and fine accuracy as JSON; ``solve`` runs a registration method over a
 dump directory (written by either package) and prints the summary.  The
 flags are the JAX package's plus ``--device``, whose default is the card.
-Only ``--dataset synthetic`` and ``.npz`` checkpoints are ported: the
-other datasets wait for the data slice (``ROADMAP.md`` A.11) and orbax
-directories for the training slice (A.9).
+Only ``--dataset synthetic`` and ``.npz`` checkpoints are read: the
+other datasets wait for the data slice (``ROADMAP.md`` A.11); orbax
+directories are JAX's, and the port's trainer (``train.cli``) writes
+``latest.npz`` beside its own checkpoints at every epoch.
 """
 from __future__ import annotations
 
@@ -109,8 +110,9 @@ def dump(args):
                          "real loaders wait for ROADMAP.md A.11")
     if args.checkpoint and not args.checkpoint.endswith(".npz"):
         raise SystemExit(f"--checkpoint {args.checkpoint}: only export_npz "
-                         ".npz files are read; orbax directories wait for "
-                         "ROADMAP.md A.9")
+                         ".npz files are read (orbax directories are the JAX "
+                         "package's; the port's train.cli writes latest.npz "
+                         "in its --checkpoints-dir)")
     maker = {"tiny": config_mod.tiny, "kitti": config_mod.kitti,
              "oxford": config_mod.oxford,
              "nuscenes": config_mod.nuscenes}[args.synthetic_preset]
@@ -144,9 +146,10 @@ def dump(args):
         engine = SubsampleEnsemble(engine, seed=0,
                                    repeats=args.classify_repeats)
     coarse_acc, fine_acc = dump_predictions(
-        engine, BatchLoader(ds, cfg.batch_size), cfg, args.out, state=state,
-        max_batches=args.max_batches, save_images=args.save_images,
-        inside_threshold=args.inside_threshold, save_probs=args.save_probs)
+        engine, BatchLoader(ds, cfg.batch_size, shuffle=False), cfg,
+        args.out, state=state, max_batches=args.max_batches,
+        save_images=args.save_images, inside_threshold=args.inside_threshold,
+        save_probs=args.save_probs)
     out = {"coarse_accuracy": coarse_acc, "fine_accuracy": fine_acc}
     print(json.dumps(out))
     return out

@@ -8,7 +8,10 @@ coarse (inside/outside frustum) and ``H/32 * W/32`` fine logits.
 
 The forward makes four kNN calls (point->node_a and node_b->cluster means
 in the encoder, point->node_b and node_a->node_b here), each one launch of
-the kNN kernel on the card.
+the kNN kernel on the card.  In train mode (``model.train()``) batch norm
+takes the batch's statistics and the head's dropout ([0.5, 0.5, 0], as
+the reference) draws its masks from the ``generator`` passed to the
+forward.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ from torch import nn
 
 from ..config import Config
 from ..device import resolve_device
+from ..ops.dtypes import widen
 from ..ops.interpolate import interpolate_inverse_dist
 from ..ops.knn import knn
 from .img_encoder import ImageEncoder
@@ -26,6 +30,7 @@ from .pc_encoder import PCEncoder
 IMG_CHANNELS = (256, 512, 512)     # resnet34: s16, s32, global
 # the forward's inputs, in its argument order
 INPUT_KEYS = ("pc", "intensity", "sn", "node_a", "node_b", "img")
+HEAD_DROPOUT = (0.5, 0.5, 0.0)     # per_point_pn (networks_united.py:57-74)
 
 
 class KeypointDetector(nn.Module):
@@ -36,27 +41,31 @@ class KeypointDetector(nn.Module):
         Ca, Cb, Cg = cfg.node_feature_a, cfg.node_feature_b, cfg.global_feature
         C16, C32, Cimg = IMG_CHANNELS
         L = cfg.num_fine_classes
-        kw = dict(normalization=cfg.normalization, activation=cfg.activation,
+        kw = dict(normalization=cfg.normalization,
+                  norm_momentum=cfg.norm_momentum, activation=cfg.activation,
                   norm_act_at_last=False, dtype=self.dtype)
         self.pc_encoder = PCEncoder(
             Ca=Ca, Cb=Cb, Cg=Cg, k_interp_point_a=cfg.k_interp_point_a,
             k_ab=cfg.k_ab, normalization=cfg.normalization,
-            activation=cfg.activation, dtype=self.dtype)
+            norm_momentum=cfg.norm_momentum, activation=cfg.activation,
+            dtype=self.dtype)
         self.img_encoder = ImageEncoder()
         self.node_b_attention_pn = PointNetMLP(Cb + Cimg, [256, L], **kw)
         self.node_b_pn = PointNetMLP(Cb + Cg + C32 + Cimg, [1024, 512, 512],
                                      **kw)
         self.node_a_attention_pn = PointNetMLP(Ca + Cimg, [256, 4 * L], **kw)
         self.node_a_pn = PointNetMLP(Ca + 512 + C16, [512, 128, 128], **kw)
-        # the reference's head dropout [0.5, 0.5, 0] is off in inference
         head_in = 128 + 512 + Ca // 2 + Ca
         head = [256, 256, 2 + L] if cfg.is_fine_resolution else [128, 128, 2]
-        self.per_point_pn = PointNetMLP(head_in, head, **kw)
+        self.per_point_pn = PointNetMLP(head_in, head,
+                                        dropout_list=HEAD_DROPOUT, **kw)
 
-    def forward(self, pc, intensity, sn, node_a, node_b, img):
+    def forward(self, pc, intensity, sn, node_a, node_b, img, *,
+                generator: torch.Generator | None = None):
         """pc (B,N,3), intensity (B,N,1), sn (B,N,3), node_a (B,Ma,3),
         node_b (B,Mb,3), img (B,H,W,3) -> (coarse (B,N,2), fine (B,N,L))
-        f32 logits, or coarse only when ``cfg.is_fine_resolution`` is off.
+        f32 logits (f64 in a float64 copy), or coarse only when ``cfg.is_fine_resolution`` is off.
+        ``generator`` draws the head's dropout masks in train mode.
         """
         cfg, dt = self.cfg, self.dtype
         B = pc.shape[0]
@@ -105,7 +114,7 @@ class KeypointDetector(nn.Module):
 
         head_in = torch.cat([interp_pa, interp_pb, enc.first_pn_out,
                              enc.second_pn_out], dim=-1)
-        scores = self.per_point_pn(head_in).float()
+        scores = widen(self.per_point_pn(head_in, generator))
         if cfg.is_fine_resolution:
             return scores[:, :, :2], scores[:, :, 2:]
         return scores

@@ -1,4 +1,5 @@
-"""Weight bridge: flax ``params`` / ``batch_stats`` trees -> the port.
+"""Weight bridge between flax ``params`` / ``batch_stats`` trees and the
+port, both ways.
 
 The trees arrive as nested dicts of numpy arrays (as the JAX package's
 checkpoints hold them).  The port's module names are the reference's
@@ -16,10 +17,14 @@ a copy kept here because the port does not import the JAX package.
 :func:`load_state_dict` takes either this module's output or a torch-style
 state_dict such as ``export_torch_detector``'s, whose Linear weights are
 (Cout, Cin, 1): trailing singleton axes are dropped to fit the port.
+:func:`flax_from_state_dict` is the inverse of :func:`state_dict_from_flax`:
+it undoes the transposes (Dense kernels (Cin, Cout), convolutions HWIO)
+and serves any dict keyed by the port's parameter names, a gradient too.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import re
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -143,3 +148,64 @@ def load_state_dict(model: nn.Module, sd: Dict) -> None:
                                      f"not fit {tuple(dst.shape)}")
                 src = src.reshape(dst.shape)
             dst.copy_(src)
+
+
+_PN_RE = re.compile(r"^(.*)\.(\d+)\.(conv|norm)\.(\w+)$")
+_BLOCK_RE = re.compile(r"^layer(\d+)\.(\d+)\.(.+)$")
+_NORM_LEAF = {"weight": ("params", "scale"), "bias": ("params", "bias"),
+              "running_mean": ("batch_stats", "mean"),
+              "running_var": ("batch_stats", "var")}
+
+
+def flax_key(name: str, normalization: str = "batch"
+             ) -> Tuple[str, Tuple[str, ...], Optional[Tuple[int, ...]]]:
+    """A port state_dict name -> (flax root ``params`` or ``batch_stats``,
+    path in that tree, axis permutation from the port's layout to flax's
+    or None)."""
+    m = _PN_RE.match(name)
+    if m and m.group(1) in PN_MAP:
+        prefix, i, part, leaf = m.groups()
+        path = PN_MAP[prefix]
+        if part == "conv":
+            if leaf == "weight":
+                return "params", path + (f"dense_{i}", "kernel"), (1, 0)
+            return "params", path + (f"dense_{i}", "bias"), None
+        root, fleaf = _NORM_LEAF[leaf]
+        kind = "BatchNorm_0" if normalization == "batch" else "GroupNorm_0"
+        return root, path + (f"norm_{i}", kind, fleaf), None
+    pre = BACKBONE_PREFIX + "."
+    if not name.startswith(pre):
+        raise KeyError(f"{name}: no flax counterpart")
+    rest, leaf = name[len(pre):].rsplit(".", 1)
+    m = _BLOCK_RE.match(rest)
+    if m:
+        stage, b, mod = m.groups()
+        mod = {"downsample.0": "down_conv", "downsample.1": "down_bn"}.get(
+            mod, mod)
+        path = BACKBONE + (f"layer{stage}_{b}", mod)
+    else:
+        path = BACKBONE + (rest,)
+    if "conv" in path[-1]:
+        return "params", path + ("kernel",), (2, 3, 1, 0)
+    root, fleaf = _NORM_LEAF[leaf]
+    return root, path + (fleaf,), None
+
+
+def flax_from_state_dict(sd: Dict, normalization: str = "batch"
+                         ) -> Tuple[Dict, Dict]:
+    """The port's state_dict (tensors or arrays; or a dict of gradients
+    keyed by parameter name) -> flax (params, batch_stats) trees of f32
+    numpy arrays, the inverse of :func:`state_dict_from_flax`."""
+    trees: Dict[str, Dict] = {"params": {}, "batch_stats": {}}
+    for name, value in sd.items():
+        root, path, perm = flax_key(name, normalization)
+        arr = value.detach().cpu().numpy() if hasattr(value, "detach") \
+            else np.asarray(value)
+        arr = _np(arr)
+        if perm is not None:
+            arr = np.ascontiguousarray(arr.transpose(perm))
+        node = trees[root]
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = arr
+    return trees["params"], trees["batch_stats"]

@@ -9,11 +9,13 @@ package's ``export_torch_detector`` writes.
 
 Dtype policy (the JAX package's, ``config.compute_dtype``): a layer casts
 its input, weight and bias to the compute dtype; normalisation computes in
-f32 and returns the compute dtype.  Parameters stay f32.
+f32 (f64 in a float64 copy of the model, ``ops.dtypes.widen``) and returns
+the compute dtype.  Parameters stay f32.
 
-This slice is inference only: batch norm uses its running statistics and
-dropout is off.  Training (batch statistics, dropout) comes with the
-training slice.
+Train mode (``module.train()``) follows flax: batch norm normalises with
+the batch's statistics and updates its running ones, and dropout draws
+its mask from the ``torch.Generator`` the caller passes to the forward.
+In eval mode batch norm uses the running statistics and dropout is off.
 """
 from __future__ import annotations
 
@@ -23,6 +25,8 @@ from typing import Callable, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops.dtypes import widen
 
 ACTIVATIONS: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
     "relu": F.relu,
@@ -36,19 +40,27 @@ ACTIVATIONS: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
 class Norm(nn.Module):
     """Batch or instance normalisation over all but the channel axis.
 
-    ``kind="batch"`` normalises with the running statistics (flax
-    convention: the running variance is the biased one).
-    ``kind="instance"`` normalises each sample over its non-channel axes
-    (flax ``GroupNorm`` with one channel per group).  ``channel_axis`` is
-    -1 for point features, 1 for NCHW maps.
+    ``kind="batch"`` is flax's ``BatchNorm``: in eval mode it normalises
+    with the running statistics; in train mode with the batch's, taken in
+    f32 over every axis but the channel axis, the variance the biased
+    ``max(0, mean(x^2) - mean(x)^2)`` (gradients flow through both), and
+    it updates the running ones as ``decay * running + (1 - decay) *
+    batch``, the running variance the biased one too (``torch.nn``'s
+    batch norm keeps the unbiased one).  ``momentum`` is the torch
+    convention, the weight of the batch (``decay = 1 - momentum``, flax's
+    ``momentum``).  ``kind="instance"`` normalises each sample over its
+    non-channel axes (flax ``GroupNorm`` with one channel per group) in
+    both modes.  ``channel_axis`` is -1 for point features, 1 for NCHW
+    maps.
     """
 
     def __init__(self, channels: int, kind: str = "batch", eps: float = 1e-5,
-                 channel_axis: int = -1):
+                 channel_axis: int = -1, momentum: float = 0.1):
         super().__init__()
         if kind not in ("batch", "instance"):
             raise ValueError(f"unknown normalization {kind!r}")
         self.kind, self.eps, self.channel_axis = kind, eps, channel_axis
+        self.decay = 1.0 - momentum
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         if kind == "batch":
@@ -56,60 +68,95 @@ class Norm(nn.Module):
             self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xf = x.float()
+        xf = widen(x)
         shape = [1] * x.dim()
         shape[self.channel_axis] = -1
-        if self.kind == "batch":
+        ch = self.channel_axis % x.dim()
+        if self.kind == "batch" and not self.training:
             mean = self.running_mean.reshape(shape)
             var = self.running_var.reshape(shape)
         else:
-            ch = self.channel_axis % x.dim()
-            axes = [a for a in range(1, x.dim()) if a != ch]
+            first = 0 if self.kind == "batch" else 1
+            axes = [a for a in range(first, x.dim()) if a != ch]
             mean = xf.mean(dim=axes, keepdim=True)
             var = torch.clamp((xf * xf).mean(dim=axes, keepdim=True)
                               - mean * mean, min=0.0)
+            if self.kind == "batch":
+                with torch.no_grad():
+                    d = self.decay
+                    self.running_mean.copy_(d * self.running_mean
+                                            + (1.0 - d) * mean.reshape(-1))
+                    self.running_var.copy_(d * self.running_var
+                                           + (1.0 - d) * var.reshape(-1))
         mul = torch.rsqrt(var + self.eps) * self.weight.reshape(shape)
         y = (xf - mean) * mul + self.bias.reshape(shape)
         return y.to(x.dtype)
 
 
+def dropout(x: torch.Tensor, rate: float,
+            generator: torch.Generator | None) -> torch.Tensor:
+    """flax's ``Dropout`` in train mode: keep where a uniform draw is below
+    ``1 - rate`` (``random.bernoulli``), scale the kept values by
+    ``1 / (1 - rate)`` in ``x``'s dtype, zero the rest.  The uniforms are
+    drawn on ``generator``'s device and moved to ``x``'s, so one seed of a
+    CPU generator gives one mask on every device."""
+    if generator is None:
+        raise ValueError("dropout in train mode needs a torch.Generator "
+                         "(pass generator= to the forward)")
+    keep_prob = 1.0 - rate
+    u = torch.rand(x.shape, generator=generator, device=generator.device)
+    keep = (u < keep_prob).to(x.device)
+    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
+                                                         device=x.device))
+
+
 class PNLayer(nn.Module):
-    """Linear -> [Norm -> activation] on the last axis."""
+    """Linear -> [Norm -> activation] -> [dropout] on the last axis."""
 
     def __init__(self, in_ch: int, out_ch: int, *, norm_act: bool,
-                 normalization: str, activation: str, dtype: torch.dtype):
+                 normalization: str, activation: str, dtype: torch.dtype,
+                 norm_momentum: float = 0.1, dropout: float = 0.0):
         super().__init__()
         self.conv = nn.Linear(in_ch, out_ch)
-        self.norm = Norm(out_ch, normalization) if norm_act else None
+        self.norm = (Norm(out_ch, normalization, momentum=norm_momentum)
+                     if norm_act else None)
         self.act = ACTIVATIONS[activation] if norm_act else None
         self.dtype = dtype
+        self.dropout_rate = dropout
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         dt = self.dtype
         x = F.linear(x.to(dt), self.conv.weight.to(dt),
                      self.conv.bias.to(dt))
         if self.norm is not None:
             x = self.act(self.norm(x))
+        if self.training and 0.0 < self.dropout_rate < 1.0:
+            x = dropout(x, self.dropout_rate, generator)
         return x
 
 
 def make_layers(in_ch: int, features: Sequence[int], *,
                 normalization: str = "batch", activation: str = "relu",
-                norm_act_at_last: bool = False,
+                norm_act_at_last: bool = False, norm_momentum: float = 0.1,
+                dropout_list: Sequence[float] | None = None,
                 dtype: torch.dtype = torch.float32) -> nn.ModuleList:
+    drops = dropout_list or [0.0] * len(features)
     layers = []
     for i, c in enumerate(features):
         last = i == len(features) - 1
         layers.append(PNLayer(in_ch, c, norm_act=(not last) or norm_act_at_last,
                               normalization=normalization,
-                              activation=activation, dtype=dtype))
+                              activation=activation, dtype=dtype,
+                              norm_momentum=norm_momentum, dropout=drops[i]))
         in_ch = c
     return nn.ModuleList(layers)
 
 
-def run_layers(layers: nn.ModuleList, x: torch.Tensor) -> torch.Tensor:
+def run_layers(layers: nn.ModuleList, x: torch.Tensor,
+               generator: torch.Generator | None = None) -> torch.Tensor:
     for layer in layers:
-        x = layer(x)
+        x = layer(x, generator)
     return x
 
 
@@ -120,8 +167,9 @@ class PointNetMLP(nn.Module):
         super().__init__()
         self.layers = make_layers(in_ch, features, **kw)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return run_layers(self.layers, x)
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        return run_layers(self.layers, x, generator)
 
 
 def init_params_(module: nn.Module, generator: torch.Generator) -> None:

@@ -15,6 +15,7 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
+from ..ops.dtypes import widen
 from ..ops.knn import gather_knn, knn
 from ..ops.segment import node_mean_and_count, node_pool_max, scatter_to_points
 from .layers import PointNetMLP, make_layers, run_layers
@@ -49,9 +50,9 @@ class KNNFusion(nn.Module):
         _, idx = knn(query, database, self.k)                   # (B, M, K)
         nb_coord = gather_knn(database, idx)                    # (B,M,K,3)
         nb_feat = gather_knn(database_features, idx)            # (B,M,K,C)
-        decentered = (nb_coord.float()
-                      - query.float()[:, :, None, :]).detach()
-        y = torch.cat([decentered, nb_feat.float()], dim=-1)
+        decentered = (widen(nb_coord)
+                      - widen(query)[:, :, None, :]).detach()
+        y = torch.cat([decentered, widen(nb_feat)], dim=-1)
         y = run_layers(self.layers_before, y)
         pooled = torch.amax(y, dim=2, keepdim=True)
         y = torch.cat([pooled.expand_as(y), y], dim=-1)
@@ -62,11 +63,11 @@ class KNNFusion(nn.Module):
 class PCEncoder(nn.Module):
     def __init__(self, Ca: int = 64, Cb: int = 256, Cg: int = 512,
                  k_interp_point_a: int = 3, k_ab: int = 16,
-                 normalization: str = "batch", activation: str = "relu",
-                 dtype: torch.dtype = torch.float32):
+                 normalization: str = "batch", norm_momentum: float = 0.1,
+                 activation: str = "relu", dtype: torch.dtype = torch.float32):
         super().__init__()
-        kw = dict(normalization=normalization, activation=activation,
-                  dtype=dtype)
+        kw = dict(normalization=normalization, norm_momentum=norm_momentum,
+                  activation=activation, dtype=dtype)
         half = Ca // 2
         self.k_interp_point_a = k_interp_point_a
         self.first_pointnet = PointNetMLP(7, [half] * 3,
@@ -86,9 +87,9 @@ class PCEncoder(nn.Module):
         cluster_mean, count = node_mean_and_count(pc, min_idx, Ma)
         has_points = (count > 0).to(pc.dtype)
         pc_centers = scatter_to_points(cluster_mean, min_idx)
-        pc_decentered = (pc.float() - pc_centers).detach()
+        pc_decentered = (widen(pc) - pc_centers).detach()
 
-        x = torch.cat([pc_decentered, intensity.float(), sn.float()], dim=-1)
+        x = torch.cat([pc_decentered, widen(intensity), widen(sn)], dim=-1)
         first_pn_out = self.first_pointnet(x)
         pooled1, _ = node_pool_max(first_pn_out, min_idx, Ma,
                                    has_points=has_points)

@@ -4,7 +4,8 @@
 Returns the 6-level pyramid ``[conv1 (/2), layer1 (/4), layer2 (/8),
 layer3 (/16), layer4 (/32), global average]``, channel-last like the JAX
 package.  Module names are torchvision's.  Convolutions run NCHW
-internally in the compute dtype; batch norm computes in f32.
+internally in the compute dtype; batch norm computes in f32 (f64 in a
+float64 copy of the model).
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.dtypes import widen
 from .layers import Norm
 
 
@@ -78,6 +80,6 @@ class ResNetPyramid(nn.Module):
             for block in getattr(self, f"layer{stage + 1}"):
                 x = block(x)
             out.append(x)
-        glob = x.float().mean(dim=(2, 3)).to(x.dtype)
+        glob = widen(x).mean(dim=(2, 3)).to(x.dtype)
         return [o.permute(0, 2, 3, 1) for o in out] + [glob]
 

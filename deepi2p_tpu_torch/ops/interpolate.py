@@ -12,14 +12,16 @@ from typing import Optional
 
 import torch
 
+from .dtypes import widen
 from .knn import gather_knn
 
 
 def _weights(query, database, topk_idx, dist2: Optional[torch.Tensor]):
+    acc = widen(query).dtype
     if dist2 is None:
-        nb = gather_knn(database.float(), topk_idx)
-        dist2 = torch.sum((query.float()[:, :, None, :] - nb) ** 2, dim=-1)
-    d = torch.sqrt(torch.clamp(dist2.float(), min=1e-12))
+        nb = gather_knn(database.to(acc), topk_idx)
+        dist2 = torch.sum((query.to(acc)[:, :, None, :] - nb) ** 2, dim=-1)
+    d = torch.sqrt(torch.clamp(dist2.to(acc), min=1e-12))
     return 1.0 - d / torch.sum(d, dim=2, keepdim=True)      # (B, N, k)
 
 
@@ -34,6 +36,6 @@ def interpolate_inverse_dist(query: torch.Tensor, database: torch.Tensor,
     feat = database_features
     B, N, _ = w.shape
     M = feat.shape[1]
-    wd = torch.zeros(B, N, M, dtype=torch.float32, device=w.device)
+    wd = torch.zeros(B, N, M, dtype=w.dtype, device=w.device)
     wd.scatter_add_(2, topk_idx.long(), w)
     return torch.bmm(wd.to(feat.dtype), feat)

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from .dtypes import widen
+
 
 def _flat_seg(idx: torch.Tensor, num_nodes: int) -> torch.Tensor:
     B = idx.shape[0]
@@ -30,17 +32,19 @@ def node_count(idx: torch.Tensor, num_nodes: int) -> torch.Tensor:
 
 def node_mean_and_count(points: torch.Tensor, idx: torch.Tensor,
                         num_nodes: int):
-    """(B,N,D) points, (B,N) assignment -> (mean (B,M,D) f32, count (B,M)).
+    """(B,N,D) points, (B,N) assignment -> (mean (B,M,D) f32, or f64 for
+    f64 points; count (B,M) f32).
 
     Empty nodes get mean 0; the denominator is detached."""
     B, N, D = points.shape
-    total = torch.zeros(B * num_nodes, D, dtype=torch.float32,
+    points = widen(points)
+    total = torch.zeros(B * num_nodes, D, dtype=points.dtype,
                         device=points.device)
     total.index_add_(0, _flat_seg(idx, num_nodes),
-                     points.float().reshape(B * N, D))
+                     points.reshape(B * N, D))
     total = total.reshape(B, num_nodes, D)
     count = node_count(idx, num_nodes)
-    mean = total / (count + 1e-5).detach()[:, :, None]
+    mean = total / (count.to(total.dtype) + 1e-5).detach()[:, :, None]
     return mean, count
 
 

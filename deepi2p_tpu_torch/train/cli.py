@@ -1,0 +1,247 @@
+"""Training entry point of the port, the JAX package's ``train.cli`` on
+one card:
+
+    python -m deepi2p_tpu_torch.train.cli --dataset synthetic \\
+        --synthetic-preset kitti --synthetic-scene street --points 8192 \\
+        --nodes 128 --checkpoints-dir runs/ck --log-dir runs/log \\
+        [--epochs E] [--resume] [--warm-start FILE.npz] [--device cpu]
+
+The flags are the JAX CLI's plus ``--device`` (default: the card).  The
+epoch loop is the JAX one (``kitti/train_classifier.py:54-154``):
+shuffled batches (seed ``seed + epoch``), one
+:meth:`~.engine.Engine.train_step` each, scalars every ``--log-every``
+steps, validation on the held-out set at each epoch's end,
+then a full checkpoint (:class:`~.checkpoint.CheckpointManager`) and
+``latest.npz`` (:func:`~.checkpoint.export_npz`, which the JAX package and
+either ``eval.cli dump`` read).  ``--resume`` restores the latest
+checkpoint and wins over ``--warm-start``; both floor the step to its
+epoch's start, so an interrupted epoch runs again from its beginning.
+
+What is not ported is refused with the ``ROADMAP.md`` item that holds it,
+never ignored: ``--dataset oxford|kitti|nuscenes`` and ``--workers > 1``
+(A.11), ``--mesh-model > 1`` (A.13), ``--device-data`` (A.12,
+``synthetic_jax``) and ``--steps-per-dispatch > 1`` (A.9: the JAX scan of
+K steps exists for a remote TPU's dispatch latency; its counterpart here
+is a CUDA graph of K steps).
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import time
+
+import torch
+
+from .. import config as config_mod
+from ..data import BatchLoader, SyntheticDataset
+from ..utils.logging import MetricsLogger
+from .checkpoint import CheckpointManager, export_npz, warm_start_npz
+from .engine import Engine
+
+
+def refusal(args) -> str:
+    """The message for a flag this port does not support, or ''."""
+    if args.dataset != "synthetic":
+        return (f"--dataset {args.dataset} is not ported yet: the real "
+                "loaders wait for ROADMAP.md A.11")
+    if args.workers > 1:
+        return ("--workers > 1 is not ported yet: the threaded loader waits "
+                "for ROADMAP.md A.11")
+    if args.mesh_model > 1:
+        return ("--mesh-model > 1 is not ported yet: multi-card training "
+                "waits for ROADMAP.md A.13")
+    if args.device_data:
+        return ("--device-data is not ported yet: synthetic_jax waits for "
+                "ROADMAP.md A.12")
+    if args.steps_per_dispatch > 1:
+        return ("--steps-per-dispatch > 1 is not ported yet: a CUDA graph "
+                "of K steps waits for ROADMAP.md A.9")
+    return ""
+
+
+def build_config(args) -> config_mod.Config:
+    if args.synthetic_preset == "tiny":
+        maker = config_mod.tiny
+    else:
+        maker = {"kitti": config_mod.kitti, "oxford": config_mod.oxford,
+                 "nuscenes": config_mod.nuscenes}[args.synthetic_preset]
+    overrides = {"dataroot": args.dataroot,
+                 "checkpoints_dir": args.checkpoints_dir}
+    if args.batch_size:
+        overrides["batch_size"] = args.batch_size
+    if args.coarse_only:
+        overrides["is_fine_resolution"] = False
+    if args.points:
+        overrides["input_pt_num"] = args.points
+    if args.nodes:
+        overrides["node_a_num"] = args.nodes
+        overrides["node_b_num"] = args.nodes
+        # kNN over node_b cannot ask for more neighbours than nodes exist
+        overrides["k_ab"] = min(maker().k_ab, args.nodes)
+    if args.synthetic_scene:
+        overrides["synthetic_scene"] = args.synthetic_scene
+    if args.img_h:
+        overrides["img_H"] = args.img_h
+    if args.img_w:
+        overrides["img_W"] = args.img_w
+    if args.lr_decay_step:
+        overrides["lr_decay_step"] = args.lr_decay_step
+    if args.inside_weight:
+        overrides["coarse_inside_weight"] = args.inside_weight
+    return maker(**overrides)
+
+
+def parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="DeepI2P port trainer")
+    p.add_argument("--dataset", default="synthetic",
+                   choices=["oxford", "kitti", "nuscenes", "synthetic"])
+    p.add_argument("--dataroot", default="")
+    p.add_argument("--checkpoints-dir", default="checkpoints")
+    p.add_argument("--log-dir", default="runs")
+    p.add_argument("--epochs", type=int, default=None)
+    p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--coarse-only", action="store_true")
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--mesh-model", type=int, default=1)
+    p.add_argument("--workers", type=int, default=1)
+    p.add_argument("--log-every", type=int, default=100)
+    p.add_argument("--synthetic-len", type=int, default=32)
+    p.add_argument("--val-len", type=int, default=None,
+                   help="synthetic: validation-set size (default len//4)")
+    p.add_argument("--fresh-scenes", action="store_true",
+                   help="synthetic: a never-seen scene per (epoch, index) "
+                        "instead of re-iterating a finite set")
+    p.add_argument("--synthetic-scene", default=None,
+                   choices=["uniform", "street"])
+    p.add_argument("--synthetic-preset", default="tiny",
+                   choices=["tiny", "kitti", "oxford", "nuscenes"],
+                   help="config preset for --dataset synthetic")
+    p.add_argument("--points", type=int, default=None,
+                   help="override cfg.input_pt_num")
+    p.add_argument("--nodes", type=int, default=None,
+                   help="override node_a_num/node_b_num")
+    p.add_argument("--img-h", type=int, default=None)
+    p.add_argument("--img-w", type=int, default=None)
+    p.add_argument("--lr-decay-step", type=int, default=None)
+    p.add_argument("--inside-weight", type=float, default=None,
+                   help="up-weight the inside-frustum coarse class in the "
+                        "focal loss (cfg.coarse_inside_weight)")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--ckpt-every", type=int, default=0,
+                   help="also checkpoint every N steps (0 = per epoch only)")
+    p.add_argument("--steps-per-dispatch", type=int, default=1,
+                   help="refused above 1 (ROADMAP.md A.9)")
+    p.add_argument("--device-data", action="store_true",
+                   help="refused (ROADMAP.md A.12)")
+    p.add_argument("--warm-start", default="",
+                   help="export_npz file to start from when no checkpoint "
+                        "is resumed (fresh Adam moments)")
+    p.add_argument("--warm-start-partial", action="store_true",
+                   help="transfer only shape-matching leaves from "
+                        "--warm-start (cross-geometry); resets the step")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default: the card)")
+    return p
+
+
+def main(argv=None):
+    p = parser()
+    args = p.parse_args(argv)
+    if args.warm_start_partial and not args.warm_start:
+        p.error("--warm-start-partial requires --warm-start")
+    msg = refusal(args)
+    if msg:
+        raise SystemExit(msg)
+
+    cfg = build_config(args)
+    epochs = args.epochs if args.epochs is not None else cfg.epochs
+    train_ds = SyntheticDataset(cfg, length=args.synthetic_len, seed=0,
+                                fresh=args.fresh_scenes)
+    val_ds = SyntheticDataset(
+        cfg, length=args.val_len or max(args.synthetic_len // 4, 1), seed=1)
+    steps_per_epoch = max(len(train_ds) // cfg.batch_size, 1)
+
+    engine = Engine(cfg, steps_per_epoch=steps_per_epoch, device=args.device)
+    logger = MetricsLogger(args.log_dir)
+    # keep_period: mid-epoch --ckpt-every saves must not evict the epoch
+    # boundaries (max_to_keep=5 alone cycles in 5 saves)
+    ckpt = CheckpointManager(cfg.checkpoints_dir,
+                             keep_period=10 * steps_per_epoch)
+    npz_path = os.path.join(cfg.checkpoints_dir, "latest.npz")
+    state = engine.init_state(seed=args.seed)
+    start_epoch = 0
+
+    def floor_to_epoch(what):
+        """Restart an interrupted epoch from its beginning: floor the step
+        to the epoch boundary, so the schedule's ``step //
+        steps_per_epoch`` and the ``--epochs`` budget stay aligned with the
+        loop's epoch across kill and resume."""
+        step0 = state.step
+        epoch = step0 // steps_per_epoch
+        state.step = epoch * steps_per_epoch
+        print(f"{what} at step {step0} (epoch {epoch}"
+              + (f"; step floored to {state.step}"
+                 if state.step != step0 else "") + ")")
+        return epoch
+
+    resumable = args.resume and ckpt.latest_step() is not None
+    if args.warm_start and resumable:
+        print(f"warm-start SKIPPED: --resume found a checkpoint at step "
+              f"{ckpt.latest_step()} in {cfg.checkpoints_dir}, which wins "
+              f"over --warm-start {args.warm_start}")
+    elif args.warm_start:
+        warm_start_npz(state, args.warm_start,
+                       partial=args.warm_start_partial)
+        start_epoch = floor_to_epoch(f"warm-started from {args.warm_start}")
+    if resumable:
+        ckpt.restore(state)
+        # --epochs is the total budget: fresh-scene seeds, the validation
+        # cadence and the log pick up where the interrupted run stopped
+        start_epoch = floor_to_epoch("resumed")
+
+    generator = torch.Generator(device=engine.device).manual_seed(
+        args.seed + 1)
+    last_ckpt = last_log = state.step
+    for epoch in range(start_epoch, epochs):
+        t_epoch = time.time()
+        train_ds.set_epoch(epoch)
+        loader = BatchLoader(train_ds, cfg.batch_size, shuffle=True,
+                             seed=args.seed + epoch)
+        for batch in loader:
+            state, metrics = engine.train_step(state, batch, generator)
+            step = state.step
+            if args.ckpt_every and step - last_ckpt >= args.ckpt_every:
+                last_ckpt = step
+                ckpt.save(state)
+                export_npz(state, npz_path)
+            if step - last_log >= args.log_every:
+                last_log = step
+                m = {k: float(v) for k, v in metrics.items()}
+                logger.log_scalars("train", m, step)
+                print(f"epoch {epoch} step {step}: " +
+                      ", ".join(f"{k}={v:.4f}" for k, v in m.items()),
+                      flush=True)
+
+        # per-epoch validation (kitti/train_classifier.py:101-137)
+        agg, n = {}, 0
+        for batch in BatchLoader(val_ds, cfg.batch_size, shuffle=False):
+            for k, v in engine.eval_step(state, batch).items():
+                agg[k] = agg.get(k, 0.0) + float(v)
+            n += 1
+        val = {k: v / n for k, v in agg.items()} if n else None
+        if val:
+            logger.log_scalars("val", val, state.step)
+            print(f"epoch {epoch} VAL: " +
+                  ", ".join(f"{k}={v:.4f}" for k, v in val.items()),
+                  flush=True)
+        ckpt.save(state, metrics=val)
+        export_npz(state, npz_path)
+        print(f"epoch {epoch} done in {time.time() - t_epoch:.1f}s",
+              flush=True)
+
+    logger.close()
+    return state
+
+
+if __name__ == "__main__":
+    main()

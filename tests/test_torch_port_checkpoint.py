@@ -35,13 +35,11 @@ def interpret_knn():
         yield
 
 
-def random_state(model, inputs, seed: int):
-    """A flax state of ``model`` with random weights, shapes from
+def random_weights(model, inputs, seed: int):
+    """Random flax params and batch statistics of ``model``, shapes from
     ``eval_shape`` (a compiled init takes ~30 s on one core): kernels
-    ~ N(0, 1/fan_in), norm scales U(0.5, 1.5), biases N(0, 0.1); then
-    running means equal to the batch's own and variances one above its
-    own (one jitted train-mode pass), which keeps the logits O(1) as
-    ``test_torch_port_detector._calibrated_stats`` does."""
+    ~ N(0, 1/fan_in), norm scales U(0.5, 1.5), biases and running means
+    N(0, 0.1), running variances 1."""
     rng = np.random.default_rng(seed)
 
     def fill(path, s):
@@ -60,17 +58,29 @@ def random_state(model, inputs, seed: int):
                                                *inputs, train=False))
     params = jax.tree_util.tree_map_with_path(fill, shapes["params"])
     stats0 = jax.tree_util.tree_map_with_path(fill, shapes["batch_stats"])
+    return params, stats0
+
+
+def calibrated(new_stats, old_stats):
+    """Running means equal to a batch's own and variances one above its
+    own, from the statistics ``old`` became after one train-mode pass over
+    that batch (flax keeps ``0.9 * old + 0.1 * batch``)."""
+    def leaf(path, new, old):
+        batch = (np.asarray(new) - 0.9 * old) / 0.1
+        return batch + 1.0 if path[-1].key == "var" else batch
+    return jax.tree_util.tree_map_with_path(leaf, new_stats, old_stats)
+
+
+def random_state(model, inputs, seed: int):
+    """:func:`random_weights`, then running statistics calibrated on the
+    batch (one jitted train-mode pass), which keeps the logits O(1) as
+    ``test_torch_port_detector._calibrated_stats`` does."""
+    params, stats0 = random_weights(model, inputs, seed)
     train = jax.jit(lambda p, s, *x: model.apply(
         {"params": p, "batch_stats": s}, *x, train=True,
         mutable=["batch_stats"], rngs={"dropout": jax.random.PRNGKey(1)}))
     _, upd = train(params, stats0, *inputs)
-
-    def leaf(path, new, old):
-        batch = (np.asarray(new) - 0.9 * old) / 0.1
-        return batch + 1.0 if path[-1].key == "var" else batch
-    stats = jax.tree_util.tree_map_with_path(leaf, upd["batch_stats"],
-                                             stats0)
-    return params, stats
+    return params, calibrated(upd["batch_stats"], stats0)
 
 
 @pytest.fixture(scope="module")

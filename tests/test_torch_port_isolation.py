@@ -1,6 +1,7 @@
-"""The port stands alone: it imports without JAX, flax, orbax or the JAX
-package, its entry points refuse to fall back to the CPU, and
-``chip_smoke.py`` fails without a card."""
+"""The port stands alone: it imports without JAX, flax, orbax, optax or
+the JAX package, its TensorBoard sink writes without TensorFlow, its
+entry points refuse to fall back to the CPU, and ``chip_smoke.py`` fails
+without a card."""
 import os
 import shutil
 import subprocess
@@ -14,7 +15,7 @@ REPO = Path(__file__).resolve().parents[1]
 
 ISOLATED = r'''
 import importlib, pkgutil, sys
-REFUSED = ("jax", "jaxlib", "flax", "orbax", "deepi2p_tpu")
+REFUSED = ("jax", "jaxlib", "flax", "orbax", "optax", "deepi2p_tpu")
 
 class Refuse:
     def find_spec(self, name, path=None, target=None):
@@ -29,12 +30,19 @@ names = [m.name for m in pkgutil.walk_packages(deepi2p_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+import tempfile
+from deepi2p_tpu_torch.utils.logging import MetricsLogger
+log = MetricsLogger(tempfile.mkdtemp())
+log.log_scalars("train", {"loss": 1.0}, 0)
+log.close()
+assert log._tb is not None and "tensorflow" not in sys.modules
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
 assert not leaked, leaked
 assert len(names) >= 15, names
 for new in ("ops.projection", "register.icp", "eval.dump", "eval.depth",
             "eval.harness", "eval.cli", "data.nuscenes", "train.checkpoint",
-            "train.engine", "data.loader", "register.pnp"):
+            "train.engine", "data.loader", "register.pnp", "train.loss",
+            "train.cli", "train.classifier", "utils.logging"):
     assert "deepi2p_tpu_torch." + new in names, new
 
 import tempfile
@@ -46,8 +54,11 @@ from deepi2p_tpu_torch.eval.dump import save_sample_dump
 from deepi2p_tpu_torch.eval.harness import evaluate_registration
 from deepi2p_tpu_torch.models import build_detector
 from deepi2p_tpu_torch.register.icp import icp_batch
+from deepi2p_tpu_torch.train.classifier import MMClassifier
+from deepi2p_tpu_torch.train.cli import main as train_main
 from deepi2p_tpu_torch.train.engine import Engine
 dump_dir = tempfile.mkdtemp()
+run_dir = tempfile.mkdtemp()
 z = np.zeros(8)
 save_sample_dump(dump_dir, "000000_00", pc=np.ones((8, 3)), coarse_pred=z,
                  coarse_label=z, fine_pred=z, fine_label=z, K=np.eye(3),
@@ -57,7 +68,10 @@ for call in (lambda: build_detector(config.tiny()),
              lambda: batch_to_torch(synthetic_batch(config.tiny())),
              lambda: evaluate_registration(dump_dir, H=8, W=8),
              lambda: icp_batch(pts, pts, torch.Generator()),
-             lambda: Engine(config.tiny())):
+             lambda: Engine(config.tiny()),
+             lambda: MMClassifier(config.tiny()),
+             lambda: train_main(["--checkpoints-dir", run_dir + "/ck",
+                                 "--log-dir", run_dir + "/log"])):
     try:
         call()
     except RuntimeError as e:

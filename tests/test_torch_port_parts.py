@@ -164,7 +164,7 @@ def test_pointnet_mlp_matches_jax(normalization, activation):
     want = np.asarray(jm.apply({"params": params, "batch_stats": stats},
                                jnp.asarray(x)))
     tm = PointNetMLP(9, [16, 12, 8], normalization=normalization,
-                     activation=activation, norm_act_at_last=True)
+                     activation=activation, norm_act_at_last=True).eval()
     sd = stack_state_dict(params, stats, "layers")
     assert set(sd) == set(tm.state_dict())
     tm.load_state_dict({k: torch.from_numpy(np.ascontiguousarray(v))
