@@ -13,7 +13,7 @@ announced as ``phase=<name> start|done t=<seconds>``:
    every f32 comparison below is a true f32 one.
 2. ``build``: one ``nvcc -c`` per ``deepi2p_tpu_torch/csrc/*.cu``, all
    started together, then one link.
-3. ``data``: the Oxford-shaped synthetic batch (B=32, N=20480, 384x640).
+3. ``batch``: the Oxford-shaped synthetic batch (B=32, N=20480, 384x640).
 4. ``model``: ``config.oxford(batch_size=32)`` with seeded weights, bf16
    as the config says; one forward gives the labels the solve sees.
 5. ``knn``: the kNN kernel against its plain version at the four shapes of
@@ -112,11 +112,26 @@ announced as ``phase=<name> start|done t=<seconds>``:
     running statistics within 1e-5, the whole gradient within 5% of
     float64's; float64 loss, metrics, statistics and every gradient leaf
     within 1e-8).
+15. ``data``: the real-dataset path on a KITTI-layout tree written to a
+    temporary directory from a seed (sequence 00: 96 frames, 09: 88; each
+    60000 points x 7 channels and a 376x1241x3 uint8 image; 32 train and
+    16 val samples): the native core built (``g++``) and loaded; the
+    train loader's host samples/s at ``config.kitti(input_pt_num=8192)``
+    with 1 and 8 threads; 2 + 10 bf16 train steps (B=8) from the tree
+    through 8 loader threads and the pinned prefetch (ms/step and
+    samples/s end to end beside the ``train`` phase's, exactly 4 kNN
+    launches per step, finite losses, the first prefetched batch bitwise
+    its host batch); ``eval.cli dump --dataset kitti`` of the val split at
+    ``config.kitti()`` (2 batches of 8, 8 kNN launches) and ``eval.cli
+    solve --method frustum`` on the card (finite summary, 2-D LM
+    launches), then the 2-D LM held to its plain version at the solve's
+    launches on the dump's labels and predictions.
 
 Then a ``kernels=`` line, one JSON line of per-kernel numbers (launches
 from the path each kernel serves: ``slice`` for kNN and the 2-D LM,
 ``solve6`` for the 6-DoF LM, ``eval`` for the 1-NN; the kNN entry also
-carries ``train_launches_per_step``), the card's
+carries ``train_launches_per_step`` and ``data_launches_per_step``, the
+2-D LM ``data_solve_launches``), the card's
 ``nvidia-smi`` name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``.  A watchdog ends a hung run after
 420 s with a traceback and a nonzero exit; any failed check exits nonzero
@@ -191,6 +206,24 @@ TRAIN_F64_RTOL = 1e-8
 # arithmetic: biases that feed train-mode batch norm) stays below this
 # fraction of the whole gradient's norm
 TRAIN_NOISE_LEAF = 1e-6
+# the data phase: a KITTI-layout tree (40 frames skipped at each end: 32
+# train and 16 val samples), the loader at 1 and DATA_WORKERS threads,
+# DATA_STEPS train steps from it, the dump of the val tree.  The loader is
+# timed over one epoch of the 32 samples cycled (no epoch restart inside a
+# window): the first DATA_WORKERS batches (all started together) untimed,
+# then DATA_RATE_BATCHES; training times DATA_STEPS steps once a step has
+# waited DATA_DRAINED_MS for its batch (or after DATA_DRAIN_MAX steps)
+DATA_TRAIN_FRAMES = 96
+DATA_VAL_FRAMES = 88
+DATA_POINTS = 60000
+DATA_DISTINCT = 8
+DATA_WORKERS = 8
+DATA_RATE_BATCHES = {1: 3, DATA_WORKERS: 4 * DATA_WORKERS}
+DATA_PROC_SAMPLES = 6    # per process, DATA_WORKERS processes
+DATA_STEPS = 16
+DATA_WARMUP = 2
+DATA_DRAIN_MAX = 24
+DATA_DRAINED_MS = 20.0
 
 KNN_RTOL = 1e-5
 LM_COST_RTOL = 1e-4
@@ -1570,6 +1603,460 @@ def train_phase(torch):
                 launches_per_step=launches // TRAIN_TIMED, knn_err=err)
 
 
+def kitti_tree(root, seed: int = 0) -> int:
+    """A KITTI-layout tree under ``root``, made from ``seed``: sequence 00
+    (train) with DATA_TRAIN_FRAMES frames and 09 (val) with
+    DATA_VAL_FRAMES, each frame DATA_POINTS points x 7 channels (street
+    scenes of the synthetic generator in NWU: xyz, intensity, normals) and
+    two 376x1241x3 uint8 images (image_3 a symlink to image_2), poses
+    0.5 m apart along x and a KITTI-like calib.txt.  The frames cycle
+    through DATA_DISTINCT distinct clouds and images.  Returns the bytes
+    written."""
+    import os
+    from pathlib import Path
+    import numpy as np
+    from deepi2p_tpu_torch.data.synthetic import _street_scene
+
+    root = Path(root)
+    rng = np.random.default_rng(seed)
+    clouds, images = [], []
+    for _ in range(DATA_DISTINCT):
+        pc, sn, inten, _ = _street_scene(rng, DATA_POINTS)
+        # camera (x right, y down, z forward) -> NWU (x fwd, y left, z up)
+        nwu = np.stack([pc[:, 2], -pc[:, 0], -pc[:, 1]], 1)
+        nsn = np.stack([sn[:, 2], -sn[:, 0], -sn[:, 1]], 1)
+        clouds.append(np.concatenate([nwu, inten, nsn], 1).T.astype(
+            np.float32))
+        images.append(rng.integers(0, 256, (376, 1241, 3), dtype=np.uint8))
+    K = "7.215377e+02 0 6.095593e+02 {tx} 0 7.215377e+02 1.728540e+02 0 " \
+        "0 0 1 0"
+    tr = "0 -1 0 0 0 0 -1 -0.08 1 0 0 -0.27"
+    written = 0
+    for seq, n in (("00", DATA_TRAIN_FRAMES), ("09", DATA_VAL_FRAMES)):
+        calib = root / "calib" / seq
+        pcdir = (root / "data_odometry_velodyne_NWU" / "sequences" / seq
+                 / "voxel0.1-SNr0.6")
+        imgdir = root / "data_odometry_color_npy" / "sequences" / seq
+        posedir = root / "poses" / seq
+        for d in (calib, pcdir, imgdir / "image_2", imgdir / "image_3",
+                  posedir):
+            d.mkdir(parents=True)
+        (calib / "calib.txt").write_text("".join(
+            f"{cam}: {K.format(tx=tx)}\n" for cam, tx in
+            (("P0", 0), ("P1", -386.1448), ("P2", 44.85728),
+             ("P3", -337.2877))) + f"Tr: {tr}\n")
+        for i in range(n):
+            np.save(pcdir / f"{i:06d}.npy", clouds[i % DATA_DISTINCT])
+            np.save(imgdir / "image_2" / f"{i:06d}.npy",
+                    images[i % DATA_DISTINCT])
+            os.symlink(f"../image_2/{i:06d}.npy",
+                       imgdir / "image_3" / f"{i:06d}.npy")
+            pose = np.eye(4, dtype=np.float32)
+            pose[0, 3] = 0.5 * i
+            np.savez(posedir / f"{i:06d}.npz", pose=pose)
+            written += clouds[0].nbytes + images[0].nbytes
+    return written
+
+
+class Cycled:
+    """``n`` samples of ``ds``, index i read as ``ds[i % len(ds)]``: one
+    epoch as long as a timed window needs."""
+
+    def __init__(self, ds, n: int):
+        self.ds, self.n = ds, n
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        return self.ds[i % len(self.ds)]
+
+
+def loader_rate(cfg, root, workers: int) -> float:
+    """Host samples/s of the KITTI train loader through ``BatchLoader``
+    with ``workers`` threads: ``DATA_RATE_BATCHES[workers]`` batches timed
+    after the first ``workers`` (untimed: they start together), all in one
+    epoch, so every thread has a batch to make throughout the window."""
+    from deepi2p_tpu_torch.data import BatchLoader, KittiLoader
+
+    B, timed = cfg.batch_size, DATA_RATE_BATCHES[workers]
+    data = Cycled(KittiLoader(root, "train", cfg), B * (workers + timed))
+    it = iter(BatchLoader(data, B, num_workers=workers, seed=workers))
+    for _ in range(workers):
+        next(it)
+    t = time.perf_counter()
+    for _ in range(timed):
+        next(it)
+    dt = time.perf_counter() - t
+    it.close()
+    return timed * B / dt
+
+
+def _loader_proc(cfg, root, rank: int, barrier, out):
+    """One process of ``loader_rate_processes``: a warm-up sample, then
+    DATA_PROC_SAMPLES timed samples after every process is ready."""
+    from deepi2p_tpu_torch.data import KittiLoader
+
+    loader = KittiLoader(root, "train", cfg, seed=rank)
+    loader[rank]
+    barrier.wait()
+    t = time.perf_counter()
+    for i in range(DATA_PROC_SAMPLES):
+        loader[(rank * DATA_PROC_SAMPLES + i) % len(loader)]
+    out.put((t, time.perf_counter()))
+
+
+def _threads_proc(cfg, root, workers: int, out):
+    """``loader_rate`` in a process of its own."""
+    out.put(loader_rate(cfg, root, workers))
+
+
+BLAS_THREAD_VARS = ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS",
+                    "MKL_NUM_THREADS")
+
+
+@contextlib.contextmanager
+def spawned(target, args_of, n: int, blas_threads: int = 0):
+    """``target(*args_of(rank), out)`` in ``n`` spawned processes, each
+    with at most ``blas_threads`` BLAS threads (0: numpy's default, one
+    per core); yields ``out``, the queue they answer on.  Every process
+    is joined (or terminated) on the way out."""
+    import multiprocessing as mp
+    import os
+
+    ctx = mp.get_context("spawn")
+    out = ctx.Queue()
+    ps = [ctx.Process(target=target, args=(*args_of(r), out))
+          for r in range(n)]
+    saved = {k: os.environ.get(k) for k in BLAS_THREAD_VARS}
+    try:
+        if blas_threads:
+            os.environ.update({k: str(blas_threads)
+                               for k in BLAS_THREAD_VARS})
+        for p in ps:
+            p.start()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    try:
+        yield out
+    finally:
+        for p in ps:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.terminate()
+                p.join()
+    require(all(p.exitcode == 0 for p in ps),
+            f"data: processes exited {[p.exitcode for p in ps]}")
+
+
+def answers(out, n: int) -> list:
+    return [out.get(timeout=180) for _ in range(n)]
+
+
+def loader_rate_processes(cfg, root, procs: int,
+                          blas_threads: int = 0) -> float:
+    """Host samples/s of ``procs`` processes, each with its own KITTI
+    train loader (no shared interpreter lock), from the first start to
+    the last end of DATA_PROC_SAMPLES samples each."""
+    import multiprocessing as mp
+
+    barrier = mp.get_context("spawn").Barrier(procs)
+    with spawned(_loader_proc, lambda r: (cfg, root, r, barrier), procs,
+                 blas_threads) as out:
+        spans = answers(out, procs)
+    span = max(b for _, b in spans) - min(a for a, _ in spans)
+    return procs * DATA_PROC_SAMPLES / span
+
+
+def _loader_spin(cfg, root, rank: int, barrier, stop, out):
+    """One background process of ``steps_beside_processes``: samples
+    from a warm loader until ``stop``; answers (samples, seconds)."""
+    from deepi2p_tpu_torch.data import KittiLoader
+
+    loader = KittiLoader(root, "train", cfg, seed=rank)
+    loader[rank]
+    barrier.wait(timeout=180)
+    t, n = time.perf_counter(), 0
+    while not stop.is_set():
+        loader[(rank + n * DATA_WORKERS) % len(loader)]
+        n += 1
+    out.put((n, time.perf_counter() - t))
+
+
+def steps_beside_processes(torch, engine, state, batch, gen, cfg, root):
+    """ms per train step on ``batch`` (already on the card) while
+    DATA_WORKERS processes, one BLAS thread each, load KITTI samples
+    beside it (the host's cores busy, no shared interpreter lock), and
+    the processes' samples/s meanwhile."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    barrier, stop = ctx.Barrier(DATA_WORKERS + 1), ctx.Event()
+    with spawned(_loader_spin, lambda r: (cfg, root, r, barrier, stop),
+                 DATA_WORKERS, 1) as out:
+        barrier.wait(timeout=180)
+        try:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(DATA_STEPS):
+                engine.train_step(state, batch, gen)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t
+        finally:
+            stop.set()
+        got = answers(out, DATA_WORKERS)
+    return dt / DATA_STEPS * 1e3, sum(n / s for n, s in got)
+
+
+DATA_SPLIT = ("_accumulate", "resample_points", "voxel_downsample_np",
+              "process_image", "resize_linear", "maybe_color_jitter",
+              "_pick_j", "assemble_sample")
+
+
+def loader_split(cfg, root, samples: int = 8) -> dict:
+    """Host seconds per sample of the KITTI train loader's stages, one
+    thread, from ``cProfile`` over ``samples`` samples (cumulative time of
+    each function; the profiler's own cost inflates the total a little)."""
+    import cProfile
+    import pstats
+    from deepi2p_tpu_torch.data import KittiLoader
+
+    loader = KittiLoader(root, "train", cfg, seed=1)
+    prof = cProfile.Profile()
+    t = time.perf_counter()
+    prof.runcall(lambda: [loader[i] for i in range(samples)])
+    total = time.perf_counter() - t
+    split = {"total": total / samples}
+    for (_, _, name), row in pstats.Stats(prof).stats.items():
+        if name in DATA_SPLIT:
+            split[name] = split.get(name, 0.0) + row[3] / samples
+    return split
+
+
+def data_phase(torch, train):
+    """The real-dataset path on a KITTI-layout tree: the native core, the
+    loader's host rate, training from disk through the threaded loader and
+    the pinned prefetch, and the dump and frustum solve of the val
+    split."""
+    import numpy as np
+    from deepi2p_tpu_torch import config
+    from deepi2p_tpu_torch.data import (BatchLoader, KittiLoader,
+                                        device_prefetch, native)
+    from deepi2p_tpu_torch.ops.knn_cuda import knn_cuda
+    from deepi2p_tpu_torch.train.engine import Engine
+
+    with tempfile.TemporaryDirectory(prefix="deepi2p_kitti_") as tmp:
+        root = f"{tmp}/kitti"
+        t = time.perf_counter()
+        written = kitti_tree(root)
+        log(f"data: KITTI tree of {DATA_TRAIN_FRAMES} + {DATA_VAL_FRAMES} "
+            f"frames ({DATA_POINTS} points x 7, 376x1241x3 uint8 images, "
+            f"image_3 linked to image_2): {written / 2 ** 30:.3f} GiB "
+            f"written in {time.perf_counter() - t:.2f} s")
+
+        t = time.perf_counter()
+        lib = native.build()
+        require(native.available(), "data: the native core did not load")
+        log(f"data: native core {lib.name} built and loaded in "
+            f"{time.perf_counter() - t:.2f} s")
+
+        cfg = config.kitti(input_pt_num=TRAIN_N, node_a_num=TRAIN_NODES,
+                           node_b_num=TRAIN_NODES)
+        B = cfg.batch_size
+        train_ds = KittiLoader(root, "train", cfg)
+        require(len(train_ds) == 32 and train_ds.native,
+                f"data: {len(train_ds)} train samples, native "
+                f"{train_ds.native}")
+        rates = {w: loader_rate(cfg, root, w) for w in DATA_RATE_BATCHES}
+        log(f"data: KITTI train loader (N={TRAIN_N}, {TRAIN_NODES} + "
+            f"{TRAIN_NODES} nodes, 3 + 3 accumulated frames, color jitter; "
+            f"reads from the page cache: the tree was just written): "
+            + ", ".join(f"{w} thread(s) {r:.2f} samples/s over "
+                        f"{DATA_RATE_BATCHES[w]} batches"
+                        for w, r in rates.items()))
+        with spawned(_threads_proc, lambda r: (cfg, root, DATA_WORKERS),
+                     1, 1) as out:
+            threads1, = answers(out, 1)
+        log(f"data: {DATA_WORKERS} threads in a process with one BLAS "
+            f"thread (numpy's default is one per core): {threads1:.2f} "
+            f"samples/s")
+        procs = {b: loader_rate_processes(cfg, root, DATA_WORKERS, b)
+                 for b in (0, 1)}
+        log(f"data: the same loader in {DATA_WORKERS} processes (one "
+            f"interpreter each, {DATA_PROC_SAMPLES} samples each): "
+            f"{procs[0]:.2f} samples/s with numpy's default BLAS threads, "
+            f"{procs[1]:.2f} with one BLAS thread per process")
+        split = loader_split(cfg, root)
+        log("data: host ms per sample, one thread, under cProfile: "
+            + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in split.items()))
+
+        # training from disk.  The engine takes DATA_WARMUP steps on one
+        # host batch moved by the prefetch (held bitwise to it) before the
+        # loader starts, so its slow first steps fill no buffer; then steps
+        # run until one after the first waits DATA_DRAINED_MS for its batch
+        # (the batches made ahead are used up) or DATA_DRAIN_MAX steps,
+        # and DATA_STEPS steps are timed, all in one epoch of the 32 train
+        # samples cycled, through DATA_WORKERS threads and the prefetch
+        engine = Engine(cfg, steps_per_epoch=len(train_ds) // B,
+                        device="cuda")
+        state = engine.init_state(seed=0)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        one = iter(BatchLoader(train_ds, B, seed=1))
+        host = next(one)
+        one.close()
+        first, = device_prefetch([host], "cuda")
+        require(first["img"].is_cuda and all(
+            np.array_equal(first[k].cpu().numpy(), host[k]) for k in host),
+            "data: the prefetched batch differs from its host batch")
+        for _ in range(DATA_WARMUP):
+            engine.train_step(state, first, gen)
+        torch.cuda.synchronize()
+        stream = device_prefetch(BatchLoader(
+            Cycled(train_ds, B * (DATA_DRAIN_MAX + DATA_STEPS
+                                  + DATA_WORKERS)),
+            B, seed=0, num_workers=DATA_WORKERS), "cuda")
+
+        def step():
+            t0 = time.perf_counter()
+            batch = next(stream)
+            wait = time.perf_counter() - t0
+            _, metrics = engine.train_step(state, batch, gen)
+            return wait, metrics["loss"]
+
+        drain = 0
+        while drain < DATA_DRAIN_MAX:
+            drain += 1
+            if step()[0] * 1e3 >= DATA_DRAINED_MS and drain > 1:
+                break
+        torch.cuda.synchronize()
+        knn_cuda.launches = 0
+        t = time.perf_counter()
+        runs = [step() for _ in range(DATA_STEPS)]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        stream.close()
+        waits = [w for w, _ in runs]
+        launches = knn_cuda.launches
+        losses = [float(x) for _, x in runs]
+        require(all(math.isfinite(x) for x in losses),
+                f"data: non-finite loss in {losses}")
+        require(launches == 4 * DATA_STEPS,
+                f"data: {launches} kNN launches in {DATA_STEPS} steps")
+        ms = dt / DATA_STEPS * 1e3
+        log(f"data: prefetched batch bitwise its host batch; "
+            f"{DATA_STEPS} bf16 steps from disk (B={B}, N={TRAIN_N}, "
+            f"{DATA_WORKERS} loader threads, after {DATA_WARMUP} warm-up "
+            f"steps and {drain} more to use up the batches made ahead; "
+            f"reads from the page cache): {ms:.3f} ms/step, "
+            f"{B * DATA_STEPS / dt:.2f} samples/s end to end; the step "
+            f"waited for its batch {sum(waits) / DATA_STEPS * 1e3:.3f} ms "
+            f"on average (least {min(waits) * 1e3:.3f}, first "
+            f"{waits[0] * 1e3:.3f}), against {train['ms']:.3f} ms/step, "
+            f"{train['samples_s']:.2f} samples/s on batches already on the "
+            f"card (train phase); kNN launches {launches} "
+            f"({launches // DATA_STEPS} per step); losses "
+            + " ".join(f"{x:.4f}" for x in losses))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(DATA_STEPS):
+            engine.train_step(state, first, gen)
+        torch.cuda.synchronize()
+        alone_ms = (time.perf_counter() - t) / DATA_STEPS * 1e3
+        beside_ms, beside_rate = steps_beside_processes(
+            torch, engine, state, first, gen, cfg, root)
+        log(f"data: {DATA_STEPS} steps on one batch already on the card: "
+            f"{alone_ms:.3f} ms/step alone, {beside_ms:.3f} while "
+            f"{DATA_WORKERS} loader processes (one BLAS thread each) load "
+            f"beside them at {beside_rate:.2f} samples/s, against "
+            f"{ms:.3f} from disk beside {DATA_WORKERS} loader threads")
+
+        def failing():
+            yield host
+            raise IOError("data: a failing loader")
+
+        moved = device_prefetch(failing(), "cuda")
+        next(moved)
+        try:
+            next(moved)
+            require(False, "data: the prefetch lost its loader's failure")
+        except IOError:
+            pass
+        del state, first, engine, moved, stream
+        torch.cuda.empty_cache()
+
+        with torch.no_grad():
+            lm_launches = dump_and_solve(torch, root, f"{tmp}/dump")
+    return dict(knn_per_step=launches // DATA_STEPS, lm=lm_launches,
+                rates=rates, procs=procs, ms=ms)
+
+
+def dump_and_solve(torch, root, dump_dir) -> int:
+    """``eval.cli dump --dataset kitti`` of the tree's val split at
+    ``config.kitti()`` with seeded weights, ``eval.cli solve --method
+    frustum`` on the card, and the 2-D LM held to its plain version on the
+    dump's labels and predictions; returns the solve's LM launches."""
+    import numpy as np
+    from deepi2p_tpu_torch import config
+    from deepi2p_tpu_torch.eval import cli as eval_cli
+    from deepi2p_tpu_torch.eval.dump import list_dump_prefixes, load_dump
+    from deepi2p_tpu_torch.ops.knn_cuda import knn_cuda
+    from deepi2p_tpu_torch.register import lm_solve_cuda
+
+    ecfg = config.kitti()
+    knn_cuda.launches = 0
+    t = time.perf_counter()
+    acc = eval_cli.main(["dump", "--dataset", "kitti", "--dataroot",
+                         root, "--out", dump_dir, "--max-batches", "2"])
+    torch.cuda.synchronize()
+    dump_wall = time.perf_counter() - t
+    dump_knn = knn_cuda.launches
+    prefixes = list_dump_prefixes(dump_dir)
+    require(len(prefixes) == 2 * ecfg.batch_size,
+            f"data: {len(prefixes)} dumped pairs")
+    d0 = load_dump(dump_dir, prefixes[0])
+    require(d0["pc"].shape == (ecfg.input_pt_num, 3)
+            and all(np.isfinite(load_dump(dump_dir, p)["pc"]).all()
+                    for p in prefixes), "data: dumped clouds")
+    require(dump_knn == 8, f"data: dump kNN launches {dump_knn} != 8")
+    log(f"data: eval.cli dump --dataset kitti (val_random_Ry, "
+        f"N={ecfg.input_pt_num}, {ecfg.img_H}x{ecfg.img_W}, 2 batches of "
+        f"{ecfg.batch_size}, seeded weights): {dump_wall:.3f} s wall, "
+        f"kNN launches {dump_knn}, accuracy {json.dumps(acc)}")
+    lm_solve_cuda.launches = 0
+    t = time.perf_counter()
+    summ = eval_cli.main(["solve", "--data-dir", dump_dir, "--method",
+                          "frustum", "--img-h", str(ecfg.img_H),
+                          "--img-w", str(ecfg.img_W),
+                          "--max-iter", str(EVAL_MAX_ITER)])
+    torch.cuda.synchronize()
+    solve_wall = time.perf_counter() - t
+    lm_launches = lm_solve_cuda.launches
+    require(summ["num_pairs"] == 2 * ecfg.batch_size
+            and all(math.isfinite(summ[k]) for k in
+                    ("rte_mean", "rre_mean", "success_rate")),
+            f"data: solve summary {summ}")
+    require(lm_launches >= 2, f"data: {lm_launches} LM launches")
+    log(f"data: eval.cli solve --method frustum: {solve_wall:.3f} s "
+        f"wall, 2-D LM launches {lm_launches}")
+    dumps = [load_dump(dump_dir, p) for p in prefixes[:ecfg.batch_size]]
+
+    def stack(field, dtype=torch.float32):
+        return torch.as_tensor(np.stack([d[field] for d in dumps])).to(
+            "cuda", dtype).contiguous()
+
+    pc, K = stack("pc"), stack("K")
+    for field in ("coarse_label", "coarse_pred"):
+        lm_halving(torch, f"KITTI tree {field}", pc,
+                   stack(field, torch.int64), K, H=ecfg.img_H,
+                   W=ecfg.img_W, solver_stride=1, n_inits=EVAL_INITS,
+                   max_iter=EVAL_MAX_ITER, timed=False)
+    return lm_launches
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     import torch
@@ -1597,7 +2084,7 @@ def main() -> int:
         log(f"build: {time.perf_counter() - t:.1f} s")
 
     cfg = config.oxford(batch_size=BATCH)
-    with phase("data"):
+    with phase("batch"):
         batch = batch_to_torch(synthetic_batch(cfg, seed=0), device="cuda")
 
     with torch.no_grad():
@@ -1629,6 +2116,8 @@ def main() -> int:
             reference_phase(torch)
     with torch.enable_grad(), phase("train"):
         train = train_phase(torch)
+    with torch.enable_grad(), phase("data"):
+        data = data_phase(torch, train)
 
     lm_src = "deepi2p_tpu_torch/csrc/frustum_lm.cu"
     kernels = [
@@ -1636,11 +2125,13 @@ def main() -> int:
              replaces="deepi2p_tpu/ops/knn_pallas.py:60",
              launches=launches["knn"],
              train_launches_per_step=train["launches_per_step"],
+             data_launches_per_step=data["knn_per_step"],
              **{**knn_row, "max_abs_err": max(knn_row["max_abs_err"],
                                               train["knn_err"])}),
         dict(name="lm_p4", route="cuda", source=lm_src,
              replaces="deepi2p_tpu/register/frustum_pallas.py:336",
-             launches=launches["lm_solve_p4"], **lm_row),
+             launches=launches["lm_solve_p4"],
+             data_solve_launches=data["lm"], **lm_row),
         dict(name="lm_p6", route="cuda", source=lm_src,
              replaces="deepi2p_tpu/register/frustum_pallas.py:336",
              launches=launches6["lm_p6"], **lm6_row),

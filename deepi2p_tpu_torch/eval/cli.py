@@ -16,11 +16,16 @@ without ``depth-dump`` (``ROADMAP.md`` A.10):
 package's ``dump`` for the same dataset and weights) and prints the coarse
 and fine accuracy as JSON; ``solve`` runs a registration method over a
 dump directory (written by either package) and prints the summary.  The
-flags are the JAX package's plus ``--device``, whose default is the card.
-Only ``--dataset synthetic`` and ``.npz`` checkpoints are read: the
-other datasets wait for the data slice (``ROADMAP.md`` A.11); orbax
-directories are JAX's, and the port's trainer (``train.cli``) writes
-``latest.npz`` beside its own checkpoints at every epoch.
+flags are the JAX package's plus ``--device``, whose default is the card,
+and ``--workers``.  ``dump --dataset oxford|kitti|nuscenes --dataroot DIR``
+reads the validation split at the dataset's preset in the JAX modes:
+Oxford ``val_random_Ry``; KITTI and nuScenes ``val`` with the mode then
+set to ``val_random_Ry``.  The loader draws every sample from one
+generator, so ``--workers 1`` (the default) gives the same dump on every
+run; more threads are faster, and interleave the draws (the JAX dump
+reads with 4).  Only ``.npz`` checkpoints are read: orbax directories are
+JAX's, and the port's trainer (``train.cli``) writes ``latest.npz``
+beside its own checkpoints at every epoch.
 """
 from __future__ import annotations
 
@@ -61,6 +66,8 @@ def _dump_args(d):
                         "(eval.dump.SubsampleEnsemble); 0 = off")
     d.add_argument("--classify-repeats", type=int, default=1,
                    help="average over this many independent covers")
+    d.add_argument("--workers", type=int, default=1,
+                   help="loader threads (1: the same samples every run)")
     d.add_argument("--device", default="cuda",
                    help="torch device of the detector (default: the card)")
 
@@ -100,22 +107,22 @@ def _solve_args(s):
 
 def dump(args):
     from .. import config as config_mod
-    from ..data import BatchLoader, SyntheticDataset
+    from .. import data
     from ..train.checkpoint import load_detector_npz
     from ..train.engine import Engine
     from .dump import SubsampleEnsemble, dump_predictions
 
-    if args.dataset != "synthetic":
-        raise SystemExit(f"--dataset {args.dataset} is not ported yet: the "
-                         "real loaders wait for ROADMAP.md A.11")
+    if args.dataset != "synthetic" and not args.dataroot:
+        raise SystemExit(f"--dataset {args.dataset} needs --dataroot")
     if args.checkpoint and not args.checkpoint.endswith(".npz"):
         raise SystemExit(f"--checkpoint {args.checkpoint}: only export_npz "
                          ".npz files are read (orbax directories are the JAX "
                          "package's; the port's train.cli writes latest.npz "
                          "in its --checkpoints-dir)")
     maker = {"tiny": config_mod.tiny, "kitti": config_mod.kitti,
-             "oxford": config_mod.oxford,
-             "nuscenes": config_mod.nuscenes}[args.synthetic_preset]
+             "oxford": config_mod.oxford, "nuscenes": config_mod.nuscenes}[
+        args.synthetic_preset if args.dataset == "synthetic"
+        else args.dataset]
     overrides = {}
     if args.batch_size:
         overrides["batch_size"] = args.batch_size
@@ -132,7 +139,15 @@ def dump(args):
     if args.synthetic_scene:
         overrides["synthetic_scene"] = args.synthetic_scene
     cfg = maker(**overrides)
-    ds = SyntheticDataset(cfg, length=args.dump_len, seed=7)
+    if args.dataset == "synthetic":
+        ds = data.SyntheticDataset(cfg, length=args.dump_len, seed=7)
+    elif args.dataset == "oxford":
+        ds = data.OxfordLoader(args.dataroot, "val_random_Ry", cfg)
+    else:
+        loader = {"kitti": data.KittiLoader,
+                  "nuscenes": data.NuScenesLoader}[args.dataset]
+        ds = loader(args.dataroot, "val", cfg)
+        ds.mode = "val_random_Ry"
 
     # --classify-n: the network runs at its trained point count on shuffled
     # subsets; the dump (cloud, labels) stays at cfg.input_pt_num
@@ -146,7 +161,8 @@ def dump(args):
         engine = SubsampleEnsemble(engine, seed=0,
                                    repeats=args.classify_repeats)
     coarse_acc, fine_acc = dump_predictions(
-        engine, BatchLoader(ds, cfg.batch_size, shuffle=False), cfg,
+        engine, data.BatchLoader(ds, cfg.batch_size, shuffle=False,
+                                 num_workers=args.workers), cfg,
         args.out, state=state, max_batches=args.max_batches,
         save_images=args.save_images, inside_threshold=args.inside_threshold,
         save_probs=args.save_probs)

@@ -1,14 +1,21 @@
 """Training entry point of the port, the JAX package's ``train.cli`` on
 one card:
 
+    python -m deepi2p_tpu_torch.train.cli --dataset kitti \\
+        --dataroot /data/kitti --checkpoints-dir runs/ck --log-dir runs/log \\
+        [--workers 8] [--epochs E] [--resume] [--warm-start FILE.npz] \\
+        [--device cpu]
     python -m deepi2p_tpu_torch.train.cli --dataset synthetic \\
         --synthetic-preset kitti --synthetic-scene street --points 8192 \\
-        --nodes 128 --checkpoints-dir runs/ck --log-dir runs/log \\
-        [--epochs E] [--resume] [--warm-start FILE.npz] [--device cpu]
+        --nodes 128 ...
 
-The flags are the JAX CLI's plus ``--device`` (default: the card).  The
-epoch loop is the JAX one (``kitti/train_classifier.py:54-154``):
-shuffled batches (seed ``seed + epoch``), one
+The flags are the JAX CLI's plus ``--device`` (default: the card).  A
+real dataset (``oxford``, ``kitti``, ``nuscenes``) trains at its preset
+(``config.<dataset>``) from ``--dataroot``, train split against val split.
+The epoch loop is the JAX one (``kitti/train_classifier.py:54-154``):
+shuffled batches (seed ``seed + epoch``) from ``--workers`` loader threads,
+pinned and copied to the card ahead of the step
+(:func:`~..data.loader.device_prefetch`), one
 :meth:`~.engine.Engine.train_step` each, scalars every ``--log-every``
 steps, validation on the held-out set at each epoch's end,
 then a full checkpoint (:class:`~.checkpoint.CheckpointManager`) and
@@ -18,8 +25,7 @@ checkpoint and wins over ``--warm-start``; both floor the step to its
 epoch's start, so an interrupted epoch runs again from its beginning.
 
 What is not ported is refused with the ``ROADMAP.md`` item that holds it,
-never ignored: ``--dataset oxford|kitti|nuscenes`` and ``--workers > 1``
-(A.11), ``--mesh-model > 1`` (A.13), ``--device-data`` (A.12,
+never ignored: ``--mesh-model > 1`` (A.13), ``--device-data`` (A.12,
 ``synthetic_jax``) and ``--steps-per-dispatch > 1`` (A.9: the JAX scan of
 K steps exists for a remote TPU's dispatch latency; its counterpart here
 is a CUDA graph of K steps).
@@ -33,7 +39,7 @@ import time
 import torch
 
 from .. import config as config_mod
-from ..data import BatchLoader, SyntheticDataset
+from ..data import BatchLoader, SyntheticDataset, device_prefetch
 from ..utils.logging import MetricsLogger
 from .checkpoint import CheckpointManager, export_npz, warm_start_npz
 from .engine import Engine
@@ -41,12 +47,8 @@ from .engine import Engine
 
 def refusal(args) -> str:
     """The message for a flag this port does not support, or ''."""
-    if args.dataset != "synthetic":
-        return (f"--dataset {args.dataset} is not ported yet: the real "
-                "loaders wait for ROADMAP.md A.11")
-    if args.workers > 1:
-        return ("--workers > 1 is not ported yet: the threaded loader waits "
-                "for ROADMAP.md A.11")
+    if args.dataset != "synthetic" and not args.dataroot:
+        return f"--dataset {args.dataset} needs --dataroot"
     if args.mesh_model > 1:
         return ("--mesh-model > 1 is not ported yet: multi-card training "
                 "waits for ROADMAP.md A.13")
@@ -59,12 +61,13 @@ def refusal(args) -> str:
     return ""
 
 
+PRESETS = {"oxford": config_mod.oxford, "kitti": config_mod.kitti,
+           "nuscenes": config_mod.nuscenes, "tiny": config_mod.tiny}
+
+
 def build_config(args) -> config_mod.Config:
-    if args.synthetic_preset == "tiny":
-        maker = config_mod.tiny
-    else:
-        maker = {"kitti": config_mod.kitti, "oxford": config_mod.oxford,
-                 "nuscenes": config_mod.nuscenes}[args.synthetic_preset]
+    maker = PRESETS[args.synthetic_preset if args.dataset == "synthetic"
+                    else args.dataset]
     overrides = {"dataroot": args.dataroot,
                  "checkpoints_dir": args.checkpoints_dir}
     if args.batch_size:
@@ -91,6 +94,23 @@ def build_config(args) -> config_mod.Config:
     return maker(**overrides)
 
 
+def build_datasets(cfg, args):
+    """(train, val) datasets: the real loaders' train and val splits, or
+    synthetic sets (val seeded apart, ``--val-len`` or a quarter)."""
+    if args.dataset == "synthetic":
+        train = SyntheticDataset(cfg, length=args.synthetic_len, seed=0,
+                                 fresh=args.fresh_scenes)
+        val = SyntheticDataset(
+            cfg, length=args.val_len or max(args.synthetic_len // 4, 1),
+            seed=1)
+        return train, val
+    from .. import data
+    loader = {"oxford": data.OxfordLoader, "kitti": data.KittiLoader,
+              "nuscenes": data.NuScenesLoader}[args.dataset]
+    return (loader(args.dataroot, "train", cfg),
+            loader(args.dataroot, "val", cfg))
+
+
 def parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="DeepI2P port trainer")
     p.add_argument("--dataset", default="synthetic",
@@ -103,7 +123,8 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--coarse-only", action="store_true")
     p.add_argument("--resume", action="store_true")
     p.add_argument("--mesh-model", type=int, default=1)
-    p.add_argument("--workers", type=int, default=1)
+    p.add_argument("--workers", type=int, default=8,
+                   help="loader threads over the dataset")
     p.add_argument("--log-every", type=int, default=100)
     p.add_argument("--synthetic-len", type=int, default=32)
     p.add_argument("--val-len", type=int, default=None,
@@ -155,10 +176,7 @@ def main(argv=None):
 
     cfg = build_config(args)
     epochs = args.epochs if args.epochs is not None else cfg.epochs
-    train_ds = SyntheticDataset(cfg, length=args.synthetic_len, seed=0,
-                                fresh=args.fresh_scenes)
-    val_ds = SyntheticDataset(
-        cfg, length=args.val_len or max(args.synthetic_len // 4, 1), seed=1)
+    train_ds, val_ds = build_datasets(cfg, args)
     steps_per_epoch = max(len(train_ds) // cfg.batch_size, 1)
 
     engine = Engine(cfg, steps_per_epoch=steps_per_epoch, device=args.device)
@@ -204,10 +222,12 @@ def main(argv=None):
     last_ckpt = last_log = state.step
     for epoch in range(start_epoch, epochs):
         t_epoch = time.time()
-        train_ds.set_epoch(epoch)
+        if hasattr(train_ds, "set_epoch"):
+            train_ds.set_epoch(epoch)
         loader = BatchLoader(train_ds, cfg.batch_size, shuffle=True,
+                             num_workers=args.workers,
                              seed=args.seed + epoch)
-        for batch in loader:
+        for batch in device_prefetch(loader, engine.device):
             state, metrics = engine.train_step(state, batch, generator)
             step = state.step
             if args.ckpt_every and step - last_ckpt >= args.ckpt_every:
@@ -224,7 +244,9 @@ def main(argv=None):
 
         # per-epoch validation (kitti/train_classifier.py:101-137)
         agg, n = {}, 0
-        for batch in BatchLoader(val_ds, cfg.batch_size, shuffle=False):
+        val_loader = BatchLoader(val_ds, cfg.batch_size, shuffle=False,
+                                 num_workers=args.workers)
+        for batch in device_prefetch(val_loader, engine.device):
             for k, v in engine.eval_step(state, batch).items():
                 agg[k] = agg.get(k, 0.0) + float(v)
             n += 1

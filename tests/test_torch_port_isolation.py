@@ -1,7 +1,7 @@
 """The port stands alone: it imports without JAX, flax, orbax, optax or
 the JAX package, its TensorBoard sink writes without TensorFlow, its
-entry points refuse to fall back to the CPU, and ``chip_smoke.py`` fails
-without a card."""
+entry points refuse to fall back to the CPU, its KITTI loader runs
+without OpenCV, and ``chip_smoke.py`` fails without a card."""
 import os
 import shutil
 import subprocess
@@ -42,14 +42,17 @@ assert len(names) >= 15, names
 for new in ("ops.projection", "register.icp", "eval.dump", "eval.depth",
             "eval.harness", "eval.cli", "data.nuscenes", "train.checkpoint",
             "train.engine", "data.loader", "register.pnp", "train.loss",
-            "train.cli", "train.classifier", "utils.logging"):
+            "train.cli", "train.classifier", "utils.logging", "ops.sampling",
+            "data.augmentation", "data.base", "data.native", "data.kitti",
+            "data.oxford", "data.nuscenes_tables"):
     assert "deepi2p_tpu_torch." + new in names, new
 
 import tempfile
 import numpy as np
 import torch
 from deepi2p_tpu_torch import config
-from deepi2p_tpu_torch.data import batch_to_torch, synthetic_batch
+from deepi2p_tpu_torch.data import (batch_to_torch, device_prefetch,
+                                    synthetic_batch)
 from deepi2p_tpu_torch.eval.dump import save_sample_dump
 from deepi2p_tpu_torch.eval.harness import evaluate_registration
 from deepi2p_tpu_torch.models import build_detector
@@ -70,6 +73,7 @@ for call in (lambda: build_detector(config.tiny()),
              lambda: icp_batch(pts, pts, torch.Generator()),
              lambda: Engine(config.tiny()),
              lambda: MMClassifier(config.tiny()),
+             lambda: next(device_prefetch([{"x": np.zeros(2)}])),
              lambda: train_main(["--checkpoints-dir", run_dir + "/ck",
                                  "--log-dir", run_dir + "/log"])):
     try:
@@ -79,6 +83,37 @@ for call in (lambda: build_detector(config.tiny()),
     else:
         raise SystemExit("an entry point ran without a card")
 print("isolated ok", len(names))
+'''
+
+
+WITHOUT_CV2 = r'''
+import sys, tempfile
+from pathlib import Path
+import numpy as np
+sys.modules["cv2"] = None           # any import of cv2 raises ImportError
+sys.path.insert(0, sys.argv[1])
+from torch_port_data_trees import kitti_tree
+from deepi2p_tpu_torch import config
+from deepi2p_tpu_torch.data import BatchLoader, KittiLoader
+from deepi2p_tpu_torch.data.base import load_image
+root = kitti_tree(Path(tempfile.mkdtemp()) / "kitti",
+                  np.random.default_rng(0), img_dtype=np.uint8)
+cfg = config.tiny(input_pt_num=256, node_a_num=16, node_b_num=16,
+                  accumulation_frame_num=1, accumulation_frame_skip=2,
+                  delta_ij_max=5)
+for mode in ("train", "val_random_Ry"):
+    ld = KittiLoader(root, "val", cfg, seed=0, native=False)
+    ld.mode = mode
+    batch = next(iter(BatchLoader(ld, 4, num_workers=2)))
+    assert batch["img"].shape == (4, cfg.img_H, cfg.img_W, 3), batch["img"].shape
+try:
+    load_image(str(Path(root) / "x.jpg"), cfg)
+except RuntimeError as e:
+    assert "OpenCV (cv2)" in str(e), e
+else:
+    raise SystemExit("a JPEG was read without cv2")
+assert sys.modules["cv2"] is None
+print("kitti without cv2 ok")
 '''
 
 
@@ -109,3 +144,9 @@ def test_chip_smoke_fails_alone(tmp_path):
                          env=env, capture_output=True, text=True, timeout=300)
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+def test_kitti_loader_runs_without_opencv():
+    out = _run(["-c", WITHOUT_CV2, str(REPO / "tests")], REPO)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "kitti without cv2 ok" in out.stdout

@@ -110,8 +110,8 @@ def test_cli_resume_floors_to_the_epoch(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (("--dataset", "kitti"), "A.11"),
-    (("--workers", "2"), "A.11"),
+    (("--mesh-model", "4"), "A.13"),
+    (("--steps-per-dispatch", "2"), "A.9"),
     (("--mesh-model", "2"), "A.13"),
     (("--device-data",), "A.12"),
     (("--steps-per-dispatch", "4"), "A.9"),
