@@ -74,7 +74,21 @@ announced as ``phase=<name> start|done t=<seconds>``:
     labels and predictions (probe B=8 N=5120 I=64, refine N=20480 I=8),
     at the plans they pick, held to the plain version as in ``lm`` and
     timed.
-12. ``serve``: the evaluation stage a user runs on trained weights, on the
+12. ``depth``: the estimated-depth ICP path at the committed depth run's
+    shape (``train.depth_cli`` at 160x512, dense street targets, B=8, f32,
+    seeded weights), with grad on for its training: 2 warm-up and 10
+    timed ``DepthTrainer`` steps on 2 batches made before the clock
+    (ms/step, peak memory, the forward's GFLOP); one step (B=2) on the
+    card against the CPU (f32: loss within 1e-5, the whole gradient within
+    1e-3 of float64's; a float64 copy: loss and every gradient leaf
+    within 1e-8); the ``eval`` batch dumped with ``--save-images`` and
+    ``eval.cli depth-dump`` of it with the trained weights (``depth.npz``)
+    on the card, timed, its depth maps and clouds within 1e-4 of the
+    CPU's; ``eval.cli solve --method icp --pseudo-dir`` on the estimated
+    clouds: exactly 31 1-NN launches, finite RTE/RRE, s per batch and the
+    1-NN's share; the 1-NN held bitwise to its plain version at that
+    launch (the harness's scaled, padded estimated clouds).
+13. ``serve``: the evaluation stage a user runs on trained weights, on the
     ``eval`` batch with seeded bf16 weights: (a) the port's ``Engine``
     inside ``SubsampleEnsemble`` (classify at N=8192, 2 covers: 6 takes)
     through ``dump_predictions`` with ``save_probs``: kNN launches (4 per
@@ -90,13 +104,13 @@ announced as ``phase=<name> start|done t=<seconds>``:
     knobs set to their defaults is bitwise the solve without them, and
     other values (probe stride 8, 16 survivors) run their two LM launches
     to finite poses.
-13. ``reference``: a small input (``config.tiny()``, f32) through the card
+14. ``reference``: a small input (``config.tiny()``, f32) through the card
     path and the CPU path (the plain versions, which the CPU tests hold to
     the JAX package): logits and solved poses (2-D and 6-DoF) must agree,
     and ``sample_inits`` from one seeded CPU generator must give equal
     inits with ``ang`` on the card and on the CPU.
 
-14. ``train``: the training path, with grad on, at the committed
+15. ``train``: the training path, with grad on, at the committed
     KITTI-shaped run (``config.kitti`` street scenes, N=8192, 128+128
     nodes, B=8, 160x512, bf16 activations, f32 parameters, seeded
     weights): the kNN kernel against its plain version at the training
@@ -112,7 +126,7 @@ announced as ``phase=<name> start|done t=<seconds>``:
     running statistics within 1e-5, the whole gradient within 5% of
     float64's; float64 loss, metrics, statistics and every gradient leaf
     within 1e-8).
-15. ``data``: the real-dataset path on a KITTI-layout tree written to a
+16. ``data``: the real-dataset path on a KITTI-layout tree written to a
     temporary directory from a seed (sequence 00: 96 frames, 09: 88; each
     60000 points x 7 channels and a 376x1241x3 uint8 image; 32 train and
     16 val samples): the native core built (``g++``) and loaded; the
@@ -125,13 +139,22 @@ announced as ``phase=<name> start|done t=<seconds>``:
     ``config.kitti()`` (2 batches of 8, 8 kNN launches) and ``eval.cli
     solve --method frustum`` on the card (finite summary, 2-D LM
     launches), then the 2-D LM held to its plain version at the solve's
-    launches on the dump's labels and predictions.
+    launches on the dump's labels and predictions.  Then JPEGs: every
+    committed fixture (``tests/data/torch_port_jpeg``) decoded by the
+    port's own decoder at scales 1, 1/2, 1/4 and 1/8 to its ``cv2``
+    digest, the 1280x960 frame's decode timed at full and half size; an
+    Oxford-layout tree of that frame (32 train and 16 val clouds of 50000
+    points) read at ``config.oxford()`` (half-size decode), the train
+    loader's samples/s on 1 and 8 threads, ``eval.cli dump --dataset
+    oxford`` of the val split (2 batches of 8, 8 kNN launches) and
+    ``solve --method frustum`` (2-D LM launches).
 
 Then a ``kernels=`` line, one JSON line of per-kernel numbers (launches
 from the path each kernel serves: ``slice`` for kNN and the 2-D LM,
 ``solve6`` for the 6-DoF LM, ``eval`` for the 1-NN; the kNN entry also
 carries ``train_launches_per_step`` and ``data_launches_per_step``, the
-2-D LM ``data_solve_launches``), the card's
+2-D LM ``data_solve_launches`` and ``oxford_solve_launches``, the 1-NN
+``depth_launches``), the card's
 ``nvidia-smi`` name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``.  A watchdog ends a hung run after
 420 s with a traceback and a nonzero exit; any failed check exits nonzero
@@ -224,6 +247,33 @@ DATA_STEPS = 16
 DATA_WARMUP = 2
 DATA_DRAIN_MAX = 24
 DATA_DRAINED_MS = 20.0
+
+# the data phase's Oxford tree: the committed 1280x960 fixture JPEG (what
+# data/prep/oxford_prep.py writes) for every camera frame, decoded at half
+# size at config.oxford(); 32 train and 16 val clouds of OX_POINTS points
+JPEG_FIXTURES = "tests/data/torch_port_jpeg"
+OXFORD_JPEG = "oxford_1280x960_420_q95.jpg"
+OX_TRAIN, OX_VAL = 32, 16
+OX_POINTS = 50000
+DECODE_REPS = 20
+
+# the depth phase: the committed depth checkpoint's run
+# (ckpts/depth_kitti_160x512_dense: train.depth_cli at 160x512 on dense
+# street targets, B=8, f32 as config.tiny sets it), seeded weights
+DEPTH_H, DEPTH_W = 160, 512
+DEPTH_BATCH = 8
+DEPTH_LR = 3e-4
+DEPTH_WARMUP = 2
+DEPTH_TIMED = 10
+DEPTH_REF_BATCH = 2       # the card-against-CPU step
+DEPTH_LOSS_RTOL = 1e-5
+# the whole f32 gradient, card against the CPU's f32 and float64 ones
+# (5.5e-05 and 3.0e-05 on an H100); a control step with TF32 convolutions
+# must read above it, so the check sees a loss of precision.  A float64
+# copy holds every gradient leaf, card against CPU.
+DEPTH_F32_GRAD_RTOL = 1e-4
+DEPTH_F64_RTOL = 1e-8
+DEPTH_MAP_RTOL = 1e-4
 
 KNN_RTOL = 1e-5
 LM_COST_RTOL = 1e-4
@@ -1153,6 +1203,258 @@ def eval_phase(torch, cfg, raw):
     return launches
 
 
+def depth_net_flops(H: int, W: int) -> float:
+    """Multiply-adds x 2 of one DepthNet forward on an H x W image (the
+    convolutions; the norms and the activations are noise beside them)."""
+    from deepi2p_tpu_torch.models.depth import WIDTHS
+
+    def conv(cin, cout, h, w):
+        return 2.0 * cin * cout * 9 * h * w
+
+    sizes, h, w, cin, total = [], H, W, 3, 0.0
+    for i, c in enumerate(WIDTHS):
+        if i:
+            h, w = -(-h // 2), -(-w // 2)
+        sizes.append((h, w))
+        total += conv(cin, c, h, w) + conv(c, c, h, w)
+        cin = c
+    for i in reversed(range(len(WIDTHS) - 1)):
+        h, w = sizes[i]
+        total += conv(cin + WIDTHS[i], WIDTHS[i], h, w)
+        cin = WIDTHS[i]
+    return total + conv(cin, 1, H, W)
+
+
+def depth_reference(torch, dcfg):
+    """One step (B=2) of the DepthNet on the card against the same step on
+    the CPU from the same weights and batch: in f32 (loss within
+    DEPTH_LOSS_RTOL, the whole gradient within DEPTH_F32_GRAD_RTOL of the
+    CPU's f32 and float64 ones; the card's step with TF32 convolutions,
+    the control, outside it) and in a float64 copy (loss, and every
+    gradient leaf within DEPTH_F64_RTOL)."""
+    from deepi2p_tpu_torch.models.depth import DepthNet, build_depth_net
+    from deepi2p_tpu_torch.train.depth_cli import DepthTrainer, depth_batch
+
+    img, depth = depth_batch(dcfg, DEPTH_REF_BATCH, 7, True, "cpu")
+    weights = build_depth_net(seed=1).state_dict()
+    res = {}
+    for dtype, dev in (("float32", "cuda"), ("float32", "cpu"),
+                       ("float64", "cuda"), ("float64", "cpu"),
+                       ("tf32", "cuda")):
+        name = "float64" if dtype == "float64" else "float32"
+        dt = getattr(torch, name)
+        m = DepthNet(compute_dtype=name)
+        m.load_state_dict(weights)
+        m = m.to(dev, dt)
+        torch.backends.cudnn.allow_tf32 = dtype == "tf32"
+        try:
+            loss, grads = DepthTrainer(m, DEPTH_LR, 1).loss_and_grads(
+                img.to(dev, dt), depth.to(dev, dt))
+            res[dtype, dev] = (float(loss),
+                               [g.detach().double().cpu() for g in grads])
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+    names = [n for n, _ in DepthNet().named_parameters()]
+
+    def whole(a, b):
+        x = torch.cat([g.flatten() for g in a])
+        y = torch.cat([g.flatten() for g in b])
+        return float((x - y).norm() / y.norm())
+
+    def lrel(a, b):
+        return abs(a - b) / abs(b)
+
+    f32c, f32h = res["float32", "cuda"], res["float32", "cpu"]
+    f64c, f64h = res["float64", "cuda"], res["float64", "cpu"]
+    loss32 = lrel(f32c[0], f32h[0])
+    g_card_cpu = whole(f32c[1], f32h[1])
+    g_card_64 = whole(f32c[1], f64h[1])
+    g_cpu_64 = whole(f32h[1], f64h[1])
+    g_tf32 = whole(res["tf32", "cuda"][1], f64h[1])
+    leaf64 = {n: float((a - b).norm() / b.norm())
+              for n, a, b in zip(names, f64c[1], f64h[1])}
+    worst = max(leaf64, key=leaf64.get)
+    log(f"depth reference (B={DEPTH_REF_BATCH}, {DEPTH_H}x{DEPTH_W}, "
+        f"TF32 off): f32 loss card {f32c[0]:.8f} cpu {f32h[0]:.8f} (rel "
+        f"{loss32:.3g}); whole f32 gradient card vs cpu {g_card_cpu:.3g}, "
+        f"card vs cpu float64 {g_card_64:.3g}, cpu f32 vs cpu float64 "
+        f"{g_cpu_64:.3g}, control: card TF32 vs cpu float64 {g_tf32:.3g}; "
+        f"float64 copy: loss rel "
+        f"{lrel(f64c[0], f64h[0]):.3g}, worst gradient leaf {worst} "
+        f"{leaf64[worst]:.3g}")
+    require(loss32 <= DEPTH_LOSS_RTOL,
+            f"depth: f32 loss card vs cpu {loss32:.3g}")
+    require(g_card_cpu <= DEPTH_F32_GRAD_RTOL,
+            f"depth: f32 gradient card vs cpu {g_card_cpu:.3g}")
+    require(g_card_64 <= DEPTH_F32_GRAD_RTOL,
+            f"depth: f32 gradient vs float64 {g_card_64:.3g}")
+    require(g_tf32 > DEPTH_F32_GRAD_RTOL,
+            f"depth: the TF32 control's gradient {g_tf32:.3g} is within "
+            f"{DEPTH_F32_GRAD_RTOL:g}: the check does not see precision")
+    require(lrel(f64c[0], f64h[0]) <= DEPTH_F64_RTOL,
+            "depth: float64 loss card vs cpu")
+    require(leaf64[worst] <= DEPTH_F64_RTOL,
+            f"depth: float64 gradient leaf {worst} {leaf64[worst]:.3g}")
+
+
+def estimated_icp_launch(torch, dump_dir, pseudo_dir):
+    """The 1-NN launch of the ``icp`` method on estimated clouds, as the
+    harness forms it: each pseudo cloud scaled to its pair's GT-visible
+    mean depth and padded with 1e6 sentinels, every pair's inits applied
+    to its dumped cloud."""
+    import os
+    import numpy as np
+    from deepi2p_tpu_torch.eval.dump import list_dump_prefixes, load_dump
+    from deepi2p_tpu_torch.register.icp import _draw_inits, _transform
+
+    clouds, targets = [], []
+    for prefix in list_dump_prefixes(dump_dir):
+        d = load_dump(dump_dir, prefix)
+        pseudo = np.load(os.path.join(pseudo_dir, prefix + "_pc.npy")).T
+        cam = d["pc"] @ d["P"][:3, :3].T + d["P"][:3, 3]
+        inside = d["coarse_label"].astype(np.float32)
+        mean_gt = np.sum(cam[:, 2] * inside) / max(np.sum(inside), 1.0)
+        targets.append(pseudo.astype(np.float32)
+                       * (mean_gt / max(float(np.mean(pseudo[:, 2])), 1e-6)))
+        clouds.append(d["pc"].astype(np.float32))
+    M = max(t.shape[0] for t in targets)
+    target = np.full((len(targets), M, 3), 1e6, np.float32)
+    for i, t in enumerate(targets):
+        target[i, :t.shape[0]] = t
+    source = torch.as_tensor(np.stack(clouds)).cuda()
+    B, N, D = source.shape
+    inits = -(-ICP_INITS // 8) * 8
+    P0 = _draw_inits(torch.Generator().manual_seed(5), (B, inits),
+                     (5.0, 0.0, 10.0), math.pi).cuda()
+    q = _transform(source[:, None], P0[..., :3, :3], P0[..., :3, 3])
+    return (q.reshape(B * inits, N, D).contiguous(),
+            torch.as_tensor(target).cuda())
+
+
+def depth_phase(torch, cfg, raw):
+    """The estimated-depth ICP path at the committed depth run's shape:
+    DepthNet training (warm-up, timed steps, peak memory), one step held
+    to the CPU, ``eval.cli depth-dump`` of the ``eval`` batch (saved with
+    its images) on the card held to the CPU, and ``eval.cli solve
+    --method icp --pseudo-dir`` on the estimated clouds, whose 1-NN launch
+    is held bitwise to the plain version."""
+    import os
+    import numpy as np
+    from deepi2p_tpu_torch import config
+    from deepi2p_tpu_torch.eval import cli as eval_cli
+    from deepi2p_tpu_torch.eval.dump import (dump_predictions,
+                                             list_dump_prefixes)
+    from deepi2p_tpu_torch.models import build_detector
+    from deepi2p_tpu_torch.models.depth import build_depth_net
+    from deepi2p_tpu_torch.ops.knn_cuda import nn1_cuda
+    from deepi2p_tpu_torch.train.depth_cli import (DepthTrainer, depth_batch,
+                                                   load_depth_fn,
+                                                   save_depth_params)
+
+    dcfg = config.tiny(synthetic_scene="street", img_H=DEPTH_H,
+                       img_W=DEPTH_W)
+    B = DEPTH_BATCH
+    model = build_depth_net(dcfg.compute_dtype, seed=0, device="cuda")
+    trainer = DepthTrainer(model, DEPTH_LR, DEPTH_WARMUP + DEPTH_TIMED)
+    t = time.perf_counter()
+    batches = [depth_batch(dcfg, B, 1 + i, True, "cuda") for i in range(2)]
+    make_s = time.perf_counter() - t
+    with torch.enable_grad():
+        for i in range(DEPTH_WARMUP):
+            trainer.step(*batches[i % 2])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        losses = [trainer.step(*batches[i % 2]) for i in range(DEPTH_TIMED)]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+    losses = [float(x) for x in losses]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms = dt / DEPTH_TIMED * 1e3
+    fwd = depth_net_flops(DEPTH_H, DEPTH_W) * B
+    require(all(math.isfinite(x) for x in losses),
+            f"depth: non-finite loss in {losses}")
+    log(f"depth train: DepthNet (16, 32, 64, 128) f32, B={B}, "
+        f"{DEPTH_H}x{DEPTH_W}, dense street targets, {DEPTH_WARMUP} warm-up "
+        f"+ {DEPTH_TIMED} timed steps on 2 batches made before the clock "
+        f"({make_s:.2f} s to make): {ms:.3f} ms/step, "
+        f"{B * DEPTH_TIMED / dt:.2f} samples/s, peak {peak:.3f} GiB; "
+        f"forward {fwd / 1e9:.2f} GFLOP per batch "
+        f"({fwd / B / 1e9:.3f} per image), a step ~3x: "
+        f"{3 * fwd / (ms * 1e-3) / 1e12:.2f} TFLOP/s; losses "
+        + " ".join(f"{x:.4f}" for x in losses))
+    depth_reference(torch, dcfg)
+
+    with tempfile.TemporaryDirectory(prefix="deepi2p_depth_") as tmp:
+        dump_dir, pseudo = f"{tmp}/dump", f"{tmp}/pseudo"
+        det = build_detector(cfg, device="cuda", seed=0)
+        dump_predictions(det, [raw], cfg, dump_dir, save_images=True)
+        del det
+        ckpt = save_depth_params(model, f"{tmp}/depth", step=trainer.count)
+        args = ["depth-dump", "--data-dir", dump_dir, "--depth-checkpoint",
+                ckpt]
+        eval_cli.main(args + ["--out", pseudo])     # warm-up
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        n = eval_cli.main(args + ["--out", pseudo])
+        torch.cuda.synchronize()
+        dump_s = time.perf_counter() - t
+        eval_cli.main(args + ["--out", f"{tmp}/pseudo_cpu", "--device",
+                              "cpu"])
+        prefixes = list_dump_prefixes(dump_dir)
+        require(n == len(prefixes) == raw["pc"].shape[0],
+                f"depth: {n} pseudo clouds for {len(prefixes)} pairs")
+        card_fn = load_depth_fn(ckpt, config.tiny(), device="cuda")
+        cpu_fn = load_depth_fn(ckpt, config.tiny(), device="cpu")
+        map_err = pc_err = 0.0
+        for p in prefixes:
+            img = np.load(os.path.join(dump_dir, p + "_img.npy"))
+            a, b = card_fn(img), cpu_fn(img)
+            map_err = max(map_err, float(np.abs(a - b).max()
+                                         / np.abs(b).max()))
+            a, b = (np.load(os.path.join(d, p + "_pc.npy"))
+                    for d in (pseudo, f"{tmp}/pseudo_cpu"))
+            pc_err = max(pc_err, float(np.abs(a - b).max()
+                                       / np.abs(b).max()))
+        log(f"depth: eval.cli depth-dump of the eval batch ({n} images "
+            f"{cfg.img_H}x{cfg.img_W}, stride 4): {dump_s:.4f} s per batch "
+            f"of {n} on the card; card vs CPU depth maps {map_err:.3g}, "
+            f"pseudo clouds {pc_err:.3g} (max abs err / max abs)")
+        require(map_err <= DEPTH_MAP_RTOL and pc_err <= DEPTH_MAP_RTOL,
+                f"depth: card vs CPU depth {map_err:.3g}, clouds "
+                f"{pc_err:.3g}")
+
+        nn1_cuda.launches = 0
+        t = time.perf_counter()
+        summ = eval_cli.main(["solve", "--data-dir", dump_dir, "--method",
+                              "icp", "--pseudo-dir", pseudo, "--img-h",
+                              str(cfg.img_H), "--img-w", str(cfg.img_W),
+                              "--n-inits", str(ICP_INITS), "--max-iter",
+                              str(ICP_ITERS)])
+        torch.cuda.synchronize()
+        icp_s = time.perf_counter() - t
+        launches = nn1_cuda.launches
+        require(launches == ICP_ITERS + 1,
+                f"depth: {launches} nn1 launches in one ICP batch, not "
+                f"{ICP_ITERS + 1}")
+        require(summ["num_pairs"] == n and all(
+            math.isfinite(summ[k]) for k in ("rte_mean", "rre_mean")),
+            f"depth: ICP summary {summ}")
+        q, target = estimated_icp_launch(torch, dump_dir, pseudo)
+        err, idx = check_nn1(torch, "icp launch, estimated clouds", q,
+                             target)
+        nn1_ms = cuda_ms(torch, lambda: nn1_cuda(q, target), 3)
+        share = launches * nn1_ms / (icp_s * 1e3)
+        log(f"depth: eval.cli solve --method icp --pseudo-dir on the "
+            f"estimated clouds ({ICP_INITS} inits, {ICP_ITERS} iterations): "
+            f"{icp_s:.4f} s per batch of {n}, nn1 launches {launches}, the "
+            f"1-NN {launches} x {nn1_ms:.4f} ms = {100 * share:.1f}% of it; "
+            f"summary {json.dumps(summ)}")
+        del idx
+    return dict(launches=launches, ms=ms, peak_gib=peak, dump_s=dump_s,
+                icp_s=icp_s, nn1_share=share, nn1_err=err)
+
+
 def pnp_profile(torch, pnp_args, W_fine: int):
     """One PnP batch (pc, coarse, fine, K on the card) under
     ``torch.profiler``: CUDA kernel launches, the device's busy time, each
@@ -1672,15 +1974,17 @@ class Cycled:
         return self.ds[i % len(self.ds)]
 
 
-def loader_rate(cfg, root, workers: int) -> float:
-    """Host samples/s of the KITTI train loader through ``BatchLoader``
-    with ``workers`` threads: ``DATA_RATE_BATCHES[workers]`` batches timed
-    after the first ``workers`` (untimed: they start together), all in one
-    epoch, so every thread has a batch to make throughout the window."""
+def loader_rate(cfg, root, workers: int, loader=None) -> float:
+    """Host samples/s of a train loader (KITTI's unless ``loader`` names
+    another) through ``BatchLoader`` with ``workers`` threads:
+    ``DATA_RATE_BATCHES[workers]`` batches timed after the first
+    ``workers`` (untimed: they start together), all in one epoch, so
+    every thread has a batch to make throughout the window."""
     from deepi2p_tpu_torch.data import BatchLoader, KittiLoader
 
     B, timed = cfg.batch_size, DATA_RATE_BATCHES[workers]
-    data = Cycled(KittiLoader(root, "train", cfg), B * (workers + timed))
+    data = Cycled((loader or KittiLoader)(root, "train", cfg),
+                  B * (workers + timed))
     it = iter(BatchLoader(data, B, num_workers=workers, seed=workers))
     for _ in range(workers):
         next(it)
@@ -1990,8 +2294,156 @@ def data_phase(torch, train):
 
         with torch.no_grad():
             lm_launches = dump_and_solve(torch, root, f"{tmp}/dump")
+        oxford = oxford_data(torch, tmp)
     return dict(knn_per_step=launches // DATA_STEPS, lm=lm_launches,
-                rates=rates, procs=procs, ms=ms)
+                rates=rates, procs=procs, ms=ms, oxford=oxford)
+
+
+def oxford_tree(root, jpeg_path) -> int:
+    """An Oxford-layout tree under ``root``: traversal ``t0`` in train.txt
+    with OX_TRAIN clouds, ``v0`` in val.txt with OX_VAL, each cloud
+    OX_POINTS points of a synthetic street scene in camera coordinates plus
+    intensity (4, N), two camera frames per cloud, every frame a link to
+    one copy of the 1280x960 JPEG ``jpeg_path``; poses 2 m apart per
+    cloud along the stored x (the camera's z).  Returns the bytes
+    written."""
+    import os
+    import shutil
+    from pathlib import Path
+    import numpy as np
+    from deepi2p_tpu_torch.data.synthetic import _street_scene
+
+    root = Path(root)
+    root.mkdir(parents=True)
+    rng = np.random.default_rng(0)
+    clouds = []
+    for _ in range(DATA_DISTINCT):
+        pc, _, inten, _ = _street_scene(rng, OX_POINTS)
+        clouds.append(np.concatenate([pc, inten], 1).T.astype(np.float32))
+    shutil.copy(jpeg_path, root / "frame.jpg")
+    written = os.path.getsize(root / "frame.jpg")
+    for split, trav, n in (("train", "t0", OX_TRAIN), ("val", "v0", OX_VAL)):
+        (root / f"{split}.txt").write_text(f"{trav}\n")
+        tdir = root / trav
+        (tdir / "lms_front").mkdir(parents=True)
+        (tdir / "stereo" / "centre").mkdir(parents=True)
+        pc_ts = np.arange(n) * 1000 + 100
+        cam_ts = np.arange(2 * n) * 500 + 50
+
+        def poses(ts):
+            out = np.tile(np.eye(4), (len(ts), 1, 1))
+            out[:, 0, 3] = np.asarray(ts) * 2e-3
+            return out
+        np.save(tdir / "pc_timestamps.npy", pc_ts)
+        np.save(tdir / "pc_poses.npy", poses(pc_ts))
+        np.save(tdir / "camera_timestamps.npy", cam_ts)
+        np.save(tdir / "camera_poses.npy", poses(cam_ts))
+        for i, ts in enumerate(pc_ts):
+            np.save(tdir / "lms_front" / f"{ts}.npy",
+                    clouds[i % DATA_DISTINCT])
+            written += clouds[0].nbytes
+        for ts in cam_ts:
+            os.symlink(root / "frame.jpg",
+                       tdir / "stereo" / "centre" / f"{ts}.jpg")
+    return written
+
+
+def jpeg_checks() -> dict:
+    """Every committed fixture decoded at scales 1, 1/2, 1/4 and 1/8 held
+    to its cv2 digest; the Oxford frame's decode timed at full and half
+    size (ms per image)."""
+    import hashlib
+    from pathlib import Path
+    from deepi2p_tpu_torch.data import jpeg
+
+    here = Path(__file__).resolve().parent / JPEG_FIXTURES
+    table = json.loads((here / "digests.json").read_text())
+    for name, scales in table.items():
+        for denom, (h, w, digest) in scales.items():
+            rgb = jpeg.decode(here / name, int(denom))
+            require(rgb.shape == (h, w, 3) and hashlib.sha256(
+                rgb.tobytes()).hexdigest() == digest,
+                f"jpeg: {name} at 1/{denom} differs from its cv2 digest")
+    data = (here / OXFORD_JPEG).read_bytes()
+    ms = {}
+    for denom in (1, 2):
+        jpeg.decode(data, denom)
+        t = time.perf_counter()
+        for _ in range(DECODE_REPS):
+            jpeg.decode(data, denom)
+        ms[denom] = (time.perf_counter() - t) / DECODE_REPS * 1e3
+    log(f"data: {len(table)} fixture JPEGs decoded to their cv2 digests at "
+        f"scales 1, 1/2, 1/4, 1/8; {OXFORD_JPEG} ({len(data)} bytes) "
+        f"{ms[1]:.3f} ms per image at full size, {ms[2]:.3f} ms at half "
+        f"(one thread, mean of {DECODE_REPS})")
+    return dict(full_ms=ms[1], half_ms=ms[2], path=here / OXFORD_JPEG)
+
+
+def oxford_data(torch, tmp) -> dict:
+    """The Oxford path on a tree of the committed fixture JPEG: the train
+    loader's host samples/s at ``config.oxford()`` with 1 and
+    DATA_WORKERS threads, ``eval.cli dump --dataset oxford`` of the val
+    split (2 batches of 8, 8 kNN launches) and ``eval.cli solve --method
+    frustum`` on the card (2-D LM launches)."""
+    from deepi2p_tpu_torch import config
+    from deepi2p_tpu_torch.data import OxfordLoader
+    from deepi2p_tpu_torch.eval import cli as eval_cli
+    from deepi2p_tpu_torch.eval.dump import list_dump_prefixes
+    from deepi2p_tpu_torch.ops.knn_cuda import knn_cuda
+    from deepi2p_tpu_torch.register import lm_solve_cuda
+
+    dec = jpeg_checks()
+    root = f"{tmp}/oxford"
+    written = oxford_tree(root, dec["path"])
+    cfg = config.oxford()
+    train_ds = OxfordLoader(root, "train", cfg)
+    require(len(train_ds) == OX_TRAIN and train_ds.native,
+            f"data: {len(train_ds)} Oxford train samples")
+    img = train_ds[0]["img"]
+    require(img.shape == (cfg.img_H, cfg.img_W, 3),
+            f"data: Oxford sample image {img.shape}")
+    rates = {w: loader_rate(cfg, root, w, OxfordLoader)
+             for w in DATA_RATE_BATCHES}
+    log(f"data: Oxford tree ({OX_TRAIN} + {OX_VAL} clouds of {OX_POINTS} "
+        f"points, 1280x960 JPEG frames decoded at half size): "
+        f"{written / 2 ** 20:.1f} MiB; train loader at config.oxford() "
+        f"(N={cfg.input_pt_num}, B={cfg.batch_size}): "
+        + ", ".join(f"{w} thread(s) {r:.2f} samples/s over "
+                    f"{DATA_RATE_BATCHES[w]} batches"
+                    for w, r in rates.items()))
+    dump_dir = f"{tmp}/oxford_dump"
+    knn_cuda.launches = 0
+    t = time.perf_counter()
+    with torch.no_grad():
+        acc = eval_cli.main(["dump", "--dataset", "oxford", "--dataroot",
+                             root, "--out", dump_dir, "--max-batches", "2"])
+    torch.cuda.synchronize()
+    dump_s = time.perf_counter() - t
+    dump_knn = knn_cuda.launches
+    n = len(list_dump_prefixes(dump_dir))
+    require(n == 2 * cfg.batch_size, f"data: {n} Oxford pairs dumped")
+    require(dump_knn == 8, f"data: Oxford dump kNN launches {dump_knn}")
+    lm_solve_cuda.launches = 0
+    t = time.perf_counter()
+    with torch.no_grad():
+        summ = eval_cli.main(["solve", "--data-dir", dump_dir, "--method",
+                              "frustum", "--img-h", str(cfg.img_H),
+                              "--img-w", str(cfg.img_W), "--max-iter",
+                              str(EVAL_MAX_ITER)])
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t
+    lm = lm_solve_cuda.launches
+    require(summ["num_pairs"] == n and all(
+        math.isfinite(summ[k]) for k in ("rte_mean", "rre_mean",
+                                         "success_rate")),
+        f"data: Oxford solve summary {summ}")
+    require(lm >= 2, f"data: Oxford solve {lm} LM launches")
+    log(f"data: eval.cli dump --dataset oxford (val_random_Ry, "
+        f"N={cfg.input_pt_num}, {cfg.img_H}x{cfg.img_W}, 2 batches of "
+        f"{cfg.batch_size}, seeded weights): {dump_s:.3f} s wall, kNN "
+        f"launches {dump_knn}, accuracy {json.dumps(acc)}; solve --method "
+        f"frustum {solve_s:.3f} s wall, 2-D LM launches {lm}")
+    return dict(decode=dec, rates=rates, lm=lm)
 
 
 def dump_and_solve(torch, root, dump_dir) -> int:
@@ -2110,6 +2562,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         with phase("eval"):
             launches_eval = eval_phase(torch, eval_cfg, eval_raw)
+        with phase("depth"):
+            depth = depth_phase(torch, eval_cfg, eval_raw)
         with phase("serve"):
             serve_phase(torch, eval_cfg, eval_raw)
         with phase("reference"):
@@ -2131,13 +2585,16 @@ def main() -> int:
         dict(name="lm_p4", route="cuda", source=lm_src,
              replaces="deepi2p_tpu/register/frustum_pallas.py:336",
              launches=launches["lm_solve_p4"],
-             data_solve_launches=data["lm"], **lm_row),
+             data_solve_launches=data["lm"],
+             oxford_solve_launches=data["oxford"]["lm"], **lm_row),
         dict(name="lm_p6", route="cuda", source=lm_src,
              replaces="deepi2p_tpu/register/frustum_pallas.py:336",
              launches=launches6["lm_p6"], **lm6_row),
         dict(name="nn1", route="cuda", source="deepi2p_tpu_torch/csrc/nn1.cu",
              replaces="deepi2p_tpu/ops/knn_pallas.py:141",
-             launches=launches_eval["nn1"], **nn1_row),
+             launches=launches_eval["nn1"], depth_launches=depth["launches"],
+             **{**nn1_row, "max_abs_err": max(nn1_row["max_abs_err"],
+                                              depth["nn1_err"])}),
     ]
     log("kernels=" + json.dumps([k["name"] for k in kernels]))
     log(json.dumps({"kernels": kernels}))

@@ -1,7 +1,7 @@
 """Data path of the port (numpy on the host, torch at the hand-over): the
 KITTI, Oxford and nuScenes loaders, synthetic batches, OpenCV-free
-augmentation, the native sampling core, the threaded batch loader and the
-pinned-memory prefetch to the card.  The exports mirror the JAX package's
+augmentation and image decoding, the native sampling core, the threaded
+batch loader and the pinned-memory prefetch to the card.  The exports mirror the JAX package's
 ``deepi2p_tpu.data``."""
 from .base import collate, crop_K, scale_K
 from .kitti import KittiCalib, KittiLoader

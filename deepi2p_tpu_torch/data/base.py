@@ -7,7 +7,8 @@ The port's copy of the JAX package's ``data/base.py``:
 * the crop -> scale -> random (train) or centre crop image pipeline of
   every loader (``data/kitti_pc_img_pose_loader.py:329-349``); the scale
   is OpenCV's ``INTER_LINEAR`` resize repeated in numpy
-  (:func:`resize_linear`), so no OpenCV is needed unless a JPEG is read;
+  (:func:`resize_linear`) and the images are decoded by the port's own
+  JPEG and PNG readers (:mod:`.jpeg`), so no OpenCV is needed;
 * resampling to N points with a voxel pre-downsample when the cloud holds
   more than 2N (``data/kitti_pc_img_pose_loader.py:298-306``);
 * FPS nodes from a random 8x subset
@@ -26,6 +27,7 @@ import numpy as np
 from ..config import Config
 from ..ops.sampling import (farthest_point_sample_np, random_resample_np,
                             voxel_downsample_np)
+from . import jpeg
 from .augmentation import color_jitter, jitter
 
 
@@ -50,43 +52,28 @@ def crop_K(K: np.ndarray, dx: float, dy: float) -> np.ndarray:
 # images
 # --------------------------------------------------------------------------
 
-_REDUCED_DECODE = {0.5: "IMREAD_REDUCED_COLOR_2",
-                   0.25: "IMREAD_REDUCED_COLOR_4",
-                   0.125: "IMREAD_REDUCED_COLOR_8"}
-
-
-def _cv2():
-    """OpenCV, which only the JPEG decode needs."""
-    try:
-        import cv2
-    except ImportError as e:
-        raise RuntimeError(
-            "reading a JPEG needs OpenCV (cv2), the port's only JPEG "
-            "decoder; it is not installed") from e
-    return cv2
+# img_scale -> the decoder's scale denominator (cv2.IMREAD_REDUCED_COLOR_2,
+# _4 and _8 in the JAX package)
+_REDUCED_DECODE = {0.5: 2, 0.25: 4, 0.125: 8}
 
 
 def read_rgb(path: str) -> np.ndarray:
-    """A JPEG or PNG as uint8 RGB at full resolution."""
-    cv2 = _cv2()
-    img = cv2.imread(path)
-    if img is None:
-        raise FileNotFoundError(f"cannot decode {path}")
-    return cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
+    """A JPEG or PNG as uint8 RGB at full resolution, bitwise what
+    ``cv2.imread`` gives (reversed to RGB); no OpenCV is needed
+    (:mod:`.jpeg`)."""
+    return jpeg.read_image(path)
 
 
 def load_image(path: str, cfg: Config):
     """Decode a JPEG, at reduced resolution when ``img_scale`` is a power
     of 1/2 and the crop rows stay integral (the decoder then scales in the
-    DCT domain).  Returns (uint8 RGB image, pre_scaled)."""
-    cv2 = _cv2()
+    DCT domain, as ``cv2.IMREAD_REDUCED_COLOR_2/4/8`` do).  Returns (uint8
+    RGB image, pre_scaled)."""
     s = cfg.img_scale
     if (s in _REDUCED_DECODE
             and float(cfg.crop_original_top_rows * s).is_integer()
             and float(cfg.crop_original_bottom_rows * s).is_integer()):
-        img = cv2.imread(path, getattr(cv2, _REDUCED_DECODE[s]))
-        if img is not None:
-            return cv2.cvtColor(img, cv2.COLOR_BGR2RGB), True
+        return jpeg.read_image(path, _REDUCED_DECODE[s]), True
     return read_rgb(path), False
 
 

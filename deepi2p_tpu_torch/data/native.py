@@ -1,14 +1,21 @@
-"""The native data-path core (``native/deepi2p_data.cpp``) through ctypes.
+"""The port's native host core (``deepi2p_tpu_torch/native/``) through
+ctypes.
 
-Farthest-point sampling, voxel downsampling and brute-force kNN in
-threaded C++, the library the JAX package's ``data/native.py`` loads.
-Here it is built at first use: ``g++`` with the flags of
-``native/Makefile`` compiles the repository's source into
-``deepi2p_tpu_torch/build/`` (never into ``native/``, where the JAX
-package looks for its own build), under a name that carries a hash of the
-source, the flags and the host's CPU (``-march=native`` code runs only
-on the CPU it was built for).  A failed build raises; callers that want
-the numpy path ask for it (``native=False`` in the loaders).
+One library from two C++ sources of the port's own:
+
+* ``deepi2p_data.cpp``, the port's copy of the JAX package's data core
+  (``native/deepi2p_data.cpp``): farthest-point sampling, voxel
+  downsampling and brute-force kNN in threaded C++;
+* ``jpeg.cpp``, the baseline JPEG decoder and the PNG row unfilter that
+  ``data/jpeg.py`` binds.
+
+It is built at first use: ``g++`` with the flags of ``native/Makefile``
+compiles both sources into ``deepi2p_tpu_torch/build/`` (never into
+``native/``, where the JAX package looks for its own build), under a name
+that carries a hash of the sources, the flags and the host's CPU
+(``-march=native`` code runs only on the CPU it was built for).  A failed
+build raises; callers that want the numpy path ask for it
+(``native=False`` in the loaders).
 """
 from __future__ import annotations
 
@@ -26,7 +33,8 @@ import numpy as np
 
 from .._build import BUILD_DIR, PKG_DIR
 
-SOURCE = PKG_DIR.parent / "native" / "deepi2p_data.cpp"
+SOURCES = (PKG_DIR / "native" / "deepi2p_data.cpp",
+           PKG_DIR / "native" / "jpeg.cpp")
 # native/Makefile's CXXFLAGS, and -shared
 CXX_FLAGS = ["-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall",
              "-pthread", "-shared"]
@@ -46,15 +54,17 @@ def _cpu_model() -> str:
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(SOURCE.read_bytes())
+    h = hashlib.sha256()
+    for src in SOURCES:
+        h.update(src.read_bytes())
     h.update(" ".join(CXX_FLAGS).encode())
     h.update(_cpu_model().encode())
     return BUILD_DIR / f"libdeepi2p_data_{h.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
-    """Compile the core if this source hash has no library yet; raise if
-    ``g++`` is missing or fails."""
+    """Compile the core if this hash of the sources has no library yet;
+    raise if ``g++`` is missing or fails."""
     out = library_path()
     if out.exists():
         return out
@@ -65,12 +75,14 @@ def build() -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.tmp{os.getpid()}")
     try:
-        res = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(SOURCE)],
+        res = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp),
+                              *map(str, SOURCES)],
                              stdout=subprocess.PIPE,
                              stderr=subprocess.STDOUT, text=True,
                              timeout=BUILD_TIMEOUT_S)
         if res.returncode != 0:
-            raise RuntimeError(f"building {SOURCE.name} failed "
+            names = " ".join(src.name for src in SOURCES)
+            raise RuntimeError(f"building {names} failed "
                                f"({res.returncode}):\n{res.stdout}")
         os.replace(tmp, out)
     finally:
@@ -88,6 +100,16 @@ def _typed(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.voxel_downsample.restype = i64
     lib.knn.argtypes = [fp, i64, fp, i64, i64, ctypes.c_int, ip]
     lib.knn.restype = None
+    u8p, cp = ctypes.POINTER(ctypes.c_uint8), ctypes.c_char_p
+    lib.jpeg_dims.argtypes = [u8p, i64, ctypes.c_int, ip, ip, cp,
+                              ctypes.c_int]
+    lib.jpeg_dims.restype = ctypes.c_int
+    lib.jpeg_decode.argtypes = [u8p, i64, ctypes.c_int, u8p, i64, i64, cp,
+                                ctypes.c_int]
+    lib.jpeg_decode.restype = ctypes.c_int
+    lib.png_unfilter.argtypes = [u8p, i64, i64, ctypes.c_int, u8p, cp,
+                                 ctypes.c_int]
+    lib.png_unfilter.restype = ctypes.c_int
     return lib
 
 

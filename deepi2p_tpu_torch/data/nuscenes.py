@@ -13,7 +13,8 @@ pair (``dataset_info.list``, ``data/nuscenes/make_datasets.py:79-155``);
 the cloud stays in the LiDAR (ENU-like) frame and the random pose rotates
 about z; ``enu2cam`` converts a pair to the camera convention for
 evaluation (``evaluation/registration_lsq.py:237-248``).  Camera images
-are JPEGs, decoded by OpenCV (:func:`~.base.read_rgb`).  Every sample
+are JPEGs, decoded by the port's own decoder (:func:`~.base.read_rgb`,
+bitwise ``cv2.imread``).  Every sample
 draws from the loader's one generator in the JAX loader's order.
 """
 from __future__ import annotations

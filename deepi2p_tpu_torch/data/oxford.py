@@ -15,9 +15,10 @@ drawn among the frames within ``ceil(translation_max /
 pc_build_interval)`` clouds until ``|t| < translation_max``
 (``:181-214``); the range limit is ``sqrt(x^2 + z^2) < pc_max_range``;
 clouds over 2N are voxel-downsampled at 0.2 m first; Oxford has no
-normals.  The JPEG is decoded by OpenCV (:func:`~.base.load_image`), the
-one step of the port's data path that needs it.  Every sample draws from
-the loader's one generator in the JAX loader's order.
+normals.  The JPEG is decoded by the port's own decoder
+(:func:`~.base.load_image`, bitwise ``cv2.imread``), at half size in the
+DCT domain at the Oxford preset.  Every sample draws from the loader's
+one generator in the JAX loader's order.
 """
 from __future__ import annotations
 

@@ -1,16 +1,21 @@
-"""Evaluation entry point of the port, the JAX package's ``eval.cli``
-without ``depth-dump`` (``ROADMAP.md`` A.10):
+"""Evaluation entry point of the port, the JAX package's ``eval.cli``:
 
     # 1. dump predictions from an export_npz checkpoint
     python -m deepi2p_tpu_torch.eval.cli dump --dataset synthetic \\
         --synthetic-preset kitti --synthetic-scene street \\
         --checkpoint ckpts/kitti_shape_r4/latest.npz --out runs/dump \\
-        [--classify-n 8192 --classify-repeats 2] [--device cpu]
+        [--save-images] [--classify-n 8192 --classify-repeats 2] \\
+        [--device cpu]
+
+    # 1b. (ICP) estimated-depth pseudo clouds from the saved images
+    python -m deepi2p_tpu_torch.eval.cli depth-dump --data-dir runs/dump \\
+        --depth-checkpoint DEPTH_CKPT/depth.npz --out runs/pseudo \\
+        [--stride 4] [--device cpu]
 
     # 2. solve + report RTE/RRE/success
     python -m deepi2p_tpu_torch.eval.cli solve --data-dir runs/dump \\
         --method frustum|pnp|icp|random --img-h 160 --img-w 512 \\
-        [--device cpu]
+        [--pseudo-dir runs/pseudo] [--device cpu]
 
 ``dump`` writes the reference's npy contract (the same files as the JAX
 package's ``dump`` for the same dataset and weights) and prints the coarse
@@ -25,12 +30,17 @@ generator, so ``--workers 1`` (the default) gives the same dump on every
 run; more threads are faster, and interleave the draws (the JAX dump
 reads with 4).  Only ``.npz`` checkpoints are read: orbax directories are
 JAX's, and the port's trainer (``train.cli``) writes ``latest.npz``
-beside its own checkpoints at every epoch.
+beside its own checkpoints at every epoch.  ``depth-dump`` (the
+reference's ``save_depth_map.py`` stage) runs a DepthNet written by the
+port's ``train.depth_cli`` (``depth.npz``) over every ``{prefix}_img.npy``
+of a dump written with ``--save-images`` and writes ``{prefix}_pc.npy``,
+the clouds ``solve --method icp --pseudo-dir`` registers against.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 
 
 def _dump_args(d):
@@ -103,6 +113,42 @@ def _solve_args(s):
     s.add_argument("--device", default="cuda",
                    help="torch device of the solvers (default: the card; "
                         "'cpu' runs the kernels' plain versions)")
+
+
+def _depth_dump_args(dd):
+    dd.add_argument("--data-dir", required=True,
+                    help="dump dir holding {prefix}_img.npy + _K.npy")
+    dd.add_argument("--depth-checkpoint", required=True,
+                    help="depth.npz (or the directory holding it)")
+    dd.add_argument("--out", required=True)
+    dd.add_argument("--stride", type=int, default=4)
+    dd.add_argument("--device", default="cuda",
+                    help="torch device of the depth net (default: the "
+                         "card)")
+
+
+def depth_dump(args):
+    import numpy as np
+
+    from .. import config as config_mod
+    from ..train.depth_cli import load_depth_fn
+    from .depth import dump_pseudo_pointclouds
+    from .dump import list_dump_prefixes
+
+    depth_fn = load_depth_fn(args.depth_checkpoint, config_mod.tiny(),
+                             device=args.device)
+    n = 0
+    for prefix in list_dump_prefixes(args.data_dir):
+        img_path = os.path.join(args.data_dir, prefix + "_img.npy")
+        if not os.path.isfile(img_path):
+            continue
+        K = np.load(os.path.join(args.data_dir, prefix + "_K.npy"))
+        n += dump_pseudo_pointclouds([(prefix, np.load(img_path))], K,
+                                     depth_fn, args.out, stride=args.stride,
+                                     device=args.device)
+    out = {"pseudo_clouds": n, "out": args.out}
+    print(json.dumps(out))
+    return n
 
 
 def dump(args):
@@ -191,10 +237,14 @@ def main(argv=None):
     sub = p.add_subparsers(dest="cmd", required=True)
     _dump_args(sub.add_parser("dump",
                               help="inference dump in the npy contract"))
+    _depth_dump_args(sub.add_parser(
+        "depth-dump", help="estimated-depth pseudo point clouds for ICP "
+                           "(the reference's save_depth_map.py stage)"))
     _solve_args(sub.add_parser("solve",
                                help="registration over a dump directory"))
     args = p.parse_args(argv)
-    return dump(args) if args.cmd == "dump" else solve(args)
+    return {"dump": dump, "depth-dump": depth_dump,
+            "solve": solve}[args.cmd](args)
 
 
 if __name__ == "__main__":

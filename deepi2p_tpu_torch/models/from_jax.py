@@ -209,3 +209,81 @@ def flax_from_state_dict(sd: Dict, normalization: str = "batch"
             node = node.setdefault(p, {})
         node[path[-1]] = arr
     return trees["params"], trees["batch_stats"]
+
+
+# --------------------------------------------------------------------------
+# DepthNet (models/depth.py)
+# --------------------------------------------------------------------------
+
+# port leaf -> (flax submodule, flax leaf, axis permutation to flax)
+_DEPTH_LEAF = {"conv.weight": ("Conv_0", "kernel", (2, 3, 1, 0)),
+               "norm.weight": ("GroupNorm_0", "scale", None),
+               "norm.bias": ("GroupNorm_0", "bias", None)}
+_HEAD_LEAF = {"head.weight": ("kernel", (2, 3, 1, 0)),
+              "head.bias": ("bias", None)}
+_DEPTH_PORT = {(sub, leaf): port for port, (sub, leaf, _) in
+               _DEPTH_LEAF.items()}
+
+
+def depth_flax_key(name: str) -> Tuple[Tuple[str, ...], Optional[tuple]]:
+    """A DepthNet state_dict name -> (flax params path, axis permutation
+    from the port's layout to flax's or None): ``enc0.conv.weight`` (OIHW)
+    -> ``('enc0', 'Conv_0', 'kernel')`` (HWIO)."""
+    if name in _HEAD_LEAF:
+        leaf, perm = _HEAD_LEAF[name]
+        return ("head", leaf), perm
+    block, _, rest = name.partition(".")
+    if rest not in _DEPTH_LEAF or not re.fullmatch(r"(enc\d+b?|dec\d+)",
+                                                   block):
+        raise KeyError(f"{name}: not a DepthNet parameter")
+    sub, leaf, perm = _DEPTH_LEAF[rest]
+    return (block, sub, leaf), perm
+
+
+def depth_state_dict_from_flax(params: Dict) -> Dict[str, np.ndarray]:
+    """A flax DepthNet ``params`` tree (with or without its ``params``
+    root) -> the port's state_dict (f32 numpy; kernels HWIO -> OIHW)."""
+    tree = params.get("params", params)
+    sd: Dict[str, np.ndarray] = {}
+
+    def walk(node, path):
+        for key, value in node.items():
+            if isinstance(value, dict):
+                walk(value, path + (key,))
+                continue
+            name = _depth_port_name(path + (key,))
+            _, perm = depth_flax_key(name)
+            arr = _np(value)
+            if perm is not None:
+                arr = arr.transpose(np.argsort(perm))
+            sd[name] = np.array(arr, np.float32, order="C")
+    walk(tree, ())
+    return sd
+
+
+def _depth_port_name(path: Tuple[str, ...]) -> str:
+    """A flax DepthNet params path -> the port's state_dict name."""
+    if path[0] == "head" and len(path) == 2:
+        return f"head.{'weight' if path[1] == 'kernel' else path[1]}"
+    if len(path) != 3 or path[1:] not in _DEPTH_PORT:
+        raise KeyError(f"{'/'.join(path)}: not a DepthNet parameter")
+    return f"{path[0]}.{_DEPTH_PORT[path[1:]]}"
+
+
+def flax_from_depth_state_dict(sd: Dict) -> Dict:
+    """The port's DepthNet state_dict (tensors or arrays) -> the flax
+    ``{'params': ...}`` tree of f32 numpy arrays, the inverse of
+    :func:`depth_state_dict_from_flax`."""
+    tree: Dict = {}
+    for name, value in sd.items():
+        path, perm = depth_flax_key(name)
+        arr = value.detach().cpu().numpy() if hasattr(value, "detach") \
+            else np.asarray(value)
+        arr = _np(arr)
+        if perm is not None:
+            arr = arr.transpose(perm)
+        node = tree
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = np.ascontiguousarray(arr)
+    return {"params": tree}

@@ -105,6 +105,13 @@ def flat_arrays(model: nn.Module) -> Dict[str, np.ndarray]:
     dicts in)."""
     params, stats = flax_from_state_dict(model.state_dict(),
                                          model.cfg.normalization)
+    return {**flatten_tree("params", params),
+            **flatten_tree("batch_stats", stats)}
+
+
+def flatten_tree(root: str, tree: Dict) -> Dict[str, np.ndarray]:
+    """A nested dict of arrays -> ``export_npz`` keys
+    (``root['a']['b']``), keys sorted at every level."""
     out: Dict[str, np.ndarray] = {}
 
     def walk(prefix, node):
@@ -113,8 +120,7 @@ def flat_arrays(model: nn.Module) -> Dict[str, np.ndarray]:
                 walk(f"{prefix}['{k}']", node[k])
             else:
                 out[f"{prefix}['{k}']"] = node[k]
-    walk("params", params)
-    walk("batch_stats", stats)
+    walk(root, tree)
     return out
 
 

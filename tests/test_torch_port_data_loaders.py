@@ -114,7 +114,8 @@ def test_nuscenes_loader_fake_backend_matches_jax(native, mode):
 
 def test_nuscenes_loader_tables_backend_matches_jax(trees, native):
     """The schema-faithful tree through each package's table reader, in
-    both modes; the JPEG decode is OpenCV's on both sides."""
+    both modes; the JPEG decode is OpenCV's on the JAX side and the port's
+    own decoder on the other."""
     lidar, cams = trees["nusc_tokens"]
     dataset = [(tok, {name: [cams[name]] for name in CAMERA_NAMES})
                for tok in lidar[::2]]

@@ -1,8 +1,11 @@
 """The port stands alone: it imports without JAX, flax, orbax, optax or
 the JAX package, its TensorBoard sink writes without TensorFlow, its
-entry points refuse to fall back to the CPU, its KITTI loader runs
-without OpenCV, and ``chip_smoke.py`` fails without a card."""
+entry points refuse to fall back to the CPU, its KITTI and Oxford loaders
+run without OpenCV (JPEGs through the port's own decoder), its native
+build reads only the port's sources, and ``chip_smoke.py`` fails without
+a card."""
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -15,7 +18,8 @@ REPO = Path(__file__).resolve().parents[1]
 
 ISOLATED = r'''
 import importlib, pkgutil, sys
-REFUSED = ("jax", "jaxlib", "flax", "orbax", "optax", "deepi2p_tpu")
+REFUSED = ("jax", "jaxlib", "flax", "orbax", "optax", "deepi2p_tpu",
+           "cv2")
 
 class Refuse:
     def find_spec(self, name, path=None, target=None):
@@ -44,7 +48,8 @@ for new in ("ops.projection", "register.icp", "eval.dump", "eval.depth",
             "train.engine", "data.loader", "register.pnp", "train.loss",
             "train.cli", "train.classifier", "utils.logging", "ops.sampling",
             "data.augmentation", "data.base", "data.native", "data.kitti",
-            "data.oxford", "data.nuscenes_tables"):
+            "data.oxford", "data.nuscenes_tables", "data.jpeg",
+            "models.depth", "train.depth_cli"):
     assert "deepi2p_tpu_torch." + new in names, new
 
 import tempfile
@@ -87,14 +92,14 @@ print("isolated ok", len(names))
 
 
 WITHOUT_CV2 = r'''
-import sys, tempfile
+import hashlib, json, sys, tempfile
 from pathlib import Path
 import numpy as np
 sys.modules["cv2"] = None           # any import of cv2 raises ImportError
 sys.path.insert(0, sys.argv[1])
-from torch_port_data_trees import kitti_tree
+from torch_port_data_trees import kitti_tree, oxford_tree
 from deepi2p_tpu_torch import config
-from deepi2p_tpu_torch.data import BatchLoader, KittiLoader
+from deepi2p_tpu_torch.data import BatchLoader, KittiLoader, OxfordLoader
 from deepi2p_tpu_torch.data.base import load_image
 root = kitti_tree(Path(tempfile.mkdtemp()) / "kitti",
                   np.random.default_rng(0), img_dtype=np.uint8)
@@ -106,14 +111,24 @@ for mode in ("train", "val_random_Ry"):
     ld.mode = mode
     batch = next(iter(BatchLoader(ld, 4, num_workers=2)))
     assert batch["img"].shape == (4, cfg.img_H, cfg.img_W, 3), batch["img"].shape
-try:
-    load_image(str(Path(root) / "x.jpg"), cfg)
-except RuntimeError as e:
-    assert "OpenCV (cv2)" in str(e), e
-else:
-    raise SystemExit("a JPEG was read without cv2")
+# a committed JPEG decodes to its cv2 digest, at the Oxford preset's half
+# size, and the Oxford loader reads a tree of such files
+fixtures = Path(sys.argv[1]) / "data" / "torch_port_jpeg"
+name = "oxford_1280x960_420_q95.jpg"
+h, w, digest = json.loads((fixtures / "digests.json").read_text())[name]["2"]
+img, pre_scaled = load_image(str(fixtures / name), config.oxford())
+assert pre_scaled and img.shape == (h, w, 3)
+assert hashlib.sha256(img.tobytes()).hexdigest() == digest
+root = oxford_tree(Path(tempfile.mkdtemp()) / "oxford",
+                   np.random.default_rng(0),
+                   jpeg=(fixtures / name).read_bytes())
+cfg = config.tiny(input_pt_num=256, node_a_num=16, node_b_num=16)
+for mode in ("train", "val_random_Ry"):
+    batch = next(iter(BatchLoader(OxfordLoader(root, mode, cfg, seed=0),
+                                  4, num_workers=2)))
+    assert batch["img"].shape == (4, cfg.img_H, cfg.img_W, 3), batch["img"].shape
 assert sys.modules["cv2"] is None
-print("kitti without cv2 ok")
+print("kitti and oxford without cv2 ok")
 '''
 
 
@@ -149,4 +164,45 @@ def test_chip_smoke_fails_alone(tmp_path):
 def test_kitti_loader_runs_without_opencv():
     out = _run(["-c", WITHOUT_CV2, str(REPO / "tests")], REPO)
     assert out.returncode == 0, out.stdout + out.stderr
-    assert "kitti without cv2 ok" in out.stdout
+    assert "kitti and oxford without cv2 ok" in out.stdout
+
+
+ALONE = r'''
+import sys
+from pathlib import Path
+from deepi2p_tpu_torch.data import jpeg, native
+lib = native.build()
+assert Path(sys.argv[1]) in lib.parents, lib
+print(jpeg.decode(sys.argv[2], 2).shape)
+'''
+
+
+def test_builds_read_only_the_ports_sources(tmp_path):
+    """Both builds (the CUDA kernels, the native host core) compile
+    sources inside ``deepi2p_tpu_torch/`` that include no file by a quoted
+    path, and the package copied alone builds its host core and decodes a
+    JPEG."""
+    from deepi2p_tpu_torch import _build
+    from deepi2p_tpu_torch.data import native
+    srcs = [*_build.sources(), *native.SOURCES]
+    assert {p.name for p in srcs} >= {"knn.cu", "nn1.cu", "frustum_lm.cu",
+                                      "deepi2p_data.cpp", "jpeg.cpp"}
+    for src in srcs:
+        assert _build.PKG_DIR in src.resolve().parents, src
+        assert not re.search(r'#\s*include\s*"', src.read_text()), src
+    compiles, link = _build.nvcc_commands("nvcc", _build.sources(),
+                                          tmp_path / "lib.so")
+    for cmd in compiles:
+        assert _build.PKG_DIR in Path(cmd[-1]).resolve().parents, cmd
+    if shutil.which("g++") is None:
+        return
+    shutil.copytree(_build.PKG_DIR, tmp_path / "deepi2p_tpu_torch",
+                    ignore=shutil.ignore_patterns("build", "__pycache__"))
+    fixture = REPO / "tests" / "data" / "torch_port_jpeg" / "s444_q85.jpg"
+    env = dict(os.environ, PYTHONPATH=str(tmp_path))
+    out = subprocess.run([sys.executable, "-c", ALONE,
+                          str(tmp_path / "deepi2p_tpu_torch"), str(fixture)],
+                         cwd=tmp_path, env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert out.stdout.strip() == "(120, 160, 3)"

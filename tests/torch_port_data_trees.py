@@ -53,9 +53,9 @@ def kitti_tree(root, rng, seqs=("09",), n=86, img_dtype=np.float32):
     return str(root)
 
 
-def oxford_tree(root, rng):
-    """One traversal in train.txt and val.txt: 6 clouds, 24 JPEGs."""
-    import cv2
+def oxford_tree(root, rng, jpeg=None):
+    """One traversal in train.txt and val.txt: 6 clouds, 24 JPEGs (a
+    seeded picture written by ``cv2.imwrite``, or the bytes ``jpeg``)."""
     trav = root / "trav0"
     (trav / "lms_front").mkdir(parents=True)
     (trav / "stereo" / "centre").mkdir(parents=True)
@@ -80,7 +80,12 @@ def oxford_tree(root, rng):
         np.save(trav / "lms_front" / f"{ts}.npy", pts)
     img = rng.integers(0, 255, (300, 400, 3), dtype=np.uint8)
     for ts in cam_ts:
-        cv2.imwrite(str(trav / "stereo" / "centre" / f"{ts}.jpg"), img)
+        path = trav / "stereo" / "centre" / f"{ts}.jpg"
+        if jpeg is None:
+            import cv2
+            cv2.imwrite(str(path), img)
+        else:
+            path.write_bytes(jpeg)
     return str(root)
 
 
