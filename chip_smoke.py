@@ -148,11 +148,37 @@ announced as ``phase=<name> start|done t=<seconds>``:
     loader's samples/s on 1 and 8 threads, ``eval.cli dump --dataset
     oxford`` of the val split (2 batches of 8, 8 kNN launches) and
     ``solve --method frustum`` (2-D LM launches).
+17. ``device_data``: batches made on the card at the ``train`` phase's
+    configuration (KITTI street, N=8192, 128+128 nodes, B=8, 160x512):
+    ``synthetic_batch_device`` timed by CUDA events, its keys, shapes,
+    dtypes and finite values; its renderer on the card against the CPU on
+    one CPU-made cloud, pose and K (point-pixel masks agree on >= 99.9% of
+    pixels); ``train.cli --dataset synthetic --device-data`` for two
+    epochs of 12 bf16 steps (exactly 4 kNN launches per train step, finite
+    losses, ms/step and samples/s end to end over the second epoch beside
+    the ``train`` phase's, the validation batches bitwise equal across the
+    epochs); 3 such steps under ``torch.profiler`` without a
+    host-to-device copy the size of an image batch.
+18. ``debug``: the ``eval`` batch dumped again with ``viz_dir`` (two PNGs
+    per sample, decoded by the port's ``read_png``);
+    ``solve_frustum_batch(backend="fast")`` (60 inits, 32 iterations, the
+    first 4 pairs) on the card against the CPU from the same inits: poses within 1e-3 and
+    costs within 1e-4 relative, apart from pairs whose answers put a
+    point on different sides of a frame edge or centre line (the kinks of
+    the cost), which are counted; ``eval.cli solve --method frustum
+    --debug-vis``: four ``{"debug_vis": ...}`` lines, three decodable
+    PNGs each, finite numbers; ``KNNModule``, ``KNNFusionModule`` and
+    ``query_topk`` on the card against the CPU (within 1e-4, 3 kNN
+    launches); the frustum quality gate of
+    ``tests/test_torch_port_quality_gates.py`` on the card with labels
+    from the port's ``noise.flip_border_band`` and ``flip_iid``: at least
+    4 of 6 solved.
 
 Then a ``kernels=`` line, one JSON line of per-kernel numbers (launches
 from the path each kernel serves: ``slice`` for kNN and the 2-D LM,
 ``solve6`` for the 6-DoF LM, ``eval`` for the 1-NN; the kNN entry also
-carries ``train_launches_per_step`` and ``data_launches_per_step``, the
+carries ``train_launches_per_step``, ``data_launches_per_step``,
+``device_data_launches_per_step`` and ``debug_launches``, the
 2-D LM ``data_solve_launches`` and ``oxford_solve_launches``, the 1-NN
 ``depth_launches``), the card's
 ``nvidia-smi`` name and power limit, and as the last line
@@ -280,6 +306,21 @@ LM_COST_RTOL = 1e-4
 LM_THETA_ATOL = 1e-3
 REF_LOGIT_RTOL = 1e-4
 REF_POSE_ATOL = 1e-3
+
+# the device_data phase: train.cli --device-data at the train phase's
+# configuration; the debug phase: the eval batch's dump
+DD_STEPS = 12            # train steps per --device-data epoch
+DD_VAL = 16              # validation samples: 2 batches
+DD_BATCH_REPS = 10       # synthetic_batch_device calls timed
+DD_PROFILED = 3          # device-data steps under torch.profiler
+RENDER_AGREE = 0.999     # point-pixel masks, card against CPU
+DEBUG_INITS = 60         # the harness's frustum solve
+DEBUG_ITERS = 32
+# the fast-solve check takes 4 of the eval batch's 8 pairs: the CPU side
+# of all 8 took 37.062 s on the host of an NVIDIA H100 80GB HBM3 (700.00 W)
+DEBUG_FAST_PAIRS = 4
+DEBUG_MODULE_RTOL = 1e-4
+GATE_PAIRS = 6
 
 
 def log(msg: str) -> None:
@@ -2509,6 +2550,425 @@ def dump_and_solve(torch, root, dump_dir) -> int:
     return lm_launches
 
 
+def _device_data_steps(torch, cfg):
+    """``train.cli --dataset synthetic --device-data`` at the train
+    phase's configuration for two epochs of DD_STEPS steps on the card:
+    the kNN launches of each train step, the end-to-end time of the second
+    epoch's steps (batch generation included), and the validation batches
+    of both epochs."""
+    from deepi2p_tpu_torch.ops.knn_cuda import knn_cuda
+    from deepi2p_tpu_torch.train import cli as train_cli
+    from deepi2p_tpu_torch.train.engine import Engine
+
+    B = cfg.batch_size
+    per_step, losses, val, stamps = [], [], [], []
+    train_step, eval_step = Engine.train_step, Engine.eval_step
+
+    def counted_train(self, state, batch, gen):
+        before = knn_cuda.launches
+        state, metrics = train_step(self, state, batch, gen)
+        per_step.append(knn_cuda.launches - before)
+        losses.append(metrics["loss"])
+        # the clock: from the end of the second epoch's first step to the
+        # end of its last, each step with the making of its batch
+        if len(per_step) in (DD_STEPS + 1, 2 * DD_STEPS):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+        return state, metrics
+
+    def recorded_eval(self, state, batch):
+        val.append({k: v.clone() for k, v in batch.items()})
+        return eval_step(self, state, batch)
+
+    Engine.train_step, Engine.eval_step = counted_train, recorded_eval
+    try:
+        with tempfile.TemporaryDirectory(prefix="deepi2p_dd_") as d:
+            knn_cuda.launches = 0
+            state = train_cli.main([
+                "--dataset", "synthetic", "--device-data",
+                "--synthetic-preset", "kitti", "--synthetic-scene",
+                "street", "--points", str(TRAIN_N), "--nodes",
+                str(TRAIN_NODES), "--synthetic-len", str(DD_STEPS * B),
+                "--val-len", str(DD_VAL), "--epochs", "2", "--log-every",
+                "1000", "--checkpoints-dir", f"{d}/ck", "--log-dir",
+                f"{d}/log"])
+            launches = knn_cuda.launches
+    finally:
+        Engine.train_step, Engine.eval_step = train_step, eval_step
+    require(state.step == 2 * DD_STEPS, f"device_data: step {state.step}")
+    losses = [float(x) for x in losses]
+    require(all(math.isfinite(x) for x in losses),
+            f"device_data: non-finite loss in {losses}")
+    require(per_step == [4] * (2 * DD_STEPS),
+            f"device_data: kNN launches per step {per_step}, not 4 each")
+    half = len(val) // 2
+    require(half == DD_VAL // B and len(val) == 2 * half,
+            f"device_data: {len(val)} validation batches")
+    same = all(torch.equal(a[k], b[k]) for a, b in zip(val[:half],
+                                                        val[half:])
+               for k in a)
+    require(same, "device_data: the validation batches differ between the "
+            "two epochs")
+    ms = (stamps[1] - stamps[0]) / (DD_STEPS - 1) * 1e3
+    return dict(ms=ms, samples_s=B * 1e3 / ms, launches=launches,
+                per_step=per_step[0], losses=losses)
+
+
+def _htod_bytes(torch, cfg, steps: int, tries: int = 4):
+    """The host-to-device copies of ``steps`` device-data train steps
+    under ``torch.profiler`` (Chrome trace), traced again when a trace
+    holds no kernel: (largest copy in bytes, copies, kernels)."""
+    from deepi2p_tpu_torch.data.synthetic_device import (
+        synthetic_batch_device)
+    from deepi2p_tpu_torch.train.engine import Engine
+
+    engine = Engine(cfg, steps_per_epoch=1000, device="cuda")
+    state = engine.init_state(seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    dgen = torch.Generator(device="cuda").manual_seed(1)
+    engine.train_step(state, synthetic_batch_device(cfg, dgen), gen)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    seen = []
+    for _ in range(tries):
+        with tempfile.TemporaryDirectory(prefix="deepi2p_prof_") as d:
+            with torch.profiler.profile(activities=acts) as prof:
+                for _ in range(steps):
+                    engine.train_step(state,
+                                      synthetic_batch_device(cfg, dgen), gen)
+                torch.cuda.synchronize()
+            path = f"{d}/trace.json"
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f).get("traceEvents", [])
+        kernels = sum(1 for e in events if e.get("cat") == "kernel")
+        copies = [e for e in events if e.get("cat") == "gpu_memcpy"
+                  and "HtoD" in e.get("name", "")]
+        sizes = [int(e.get("args", {}).get("bytes", 0)) for e in copies]
+        if kernels:
+            return max(sizes, default=0), len(copies), kernels
+        seen.append((kernels, len(copies)))
+        time.sleep(0.5)
+    raise CheckFailed(f"device_data: {tries} profiler traces hold no "
+                      f"kernel: {seen}")
+
+
+def device_data_phase(torch, train):
+    """Batches made on the card at the train phase's configuration:
+    ``synthetic_batch_device`` timed and checked, its renderer against the
+    CPU's, ``train.cli --device-data`` end to end, and no image-sized
+    host-to-device copy per step."""
+    import numpy as np
+    from deepi2p_tpu_torch import config
+    from deepi2p_tpu_torch.data import synthetic_batch
+    from deepi2p_tpu_torch.data.synthetic_device import (
+        _render, synthetic_batch_device)
+
+    cfg = config.kitti(synthetic_scene="street", input_pt_num=TRAIN_N,
+                       node_a_num=TRAIN_NODES, node_b_num=TRAIN_NODES)
+    B, H, W = cfg.batch_size, cfg.img_H, cfg.img_W
+    require(B == 8 and cfg.compute_dtype == "bfloat16",
+            "device_data: the KITTI preset is B=8, bf16")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batch = synthetic_batch_device(cfg, gen)
+    host = synthetic_batch(cfg.replace(input_pt_num=64), batch_size=B)
+    for k, v in host.items():
+        want = v.shape if k not in ("pc", "intensity", "sn") else (
+            B, TRAIN_N, v.shape[2])
+        require(k in batch and tuple(batch[k].shape) == want
+                and batch[k].dtype == torch.float32
+                and batch[k].device.type == "cuda",
+                f"device_data: {k} {tuple(batch[k].shape)} "
+                f"{batch[k].dtype} {batch[k].device}, host {want}")
+        require(bool(torch.isfinite(batch[k]).all()),
+                f"device_data: non-finite {k}")
+    require(set(batch) == set(host), f"device_data: keys {sorted(batch)}")
+    ms_batch = cuda_ms(torch, lambda: synthetic_batch_device(cfg, gen),
+                       DD_BATCH_REPS)
+    log(f"device_data: synthetic_batch_device (B={B}, N={TRAIN_N}, "
+        f"{H}x{W}, street): {ms_batch:.4f} ms per batch (CUDA events, "
+        f"{DD_BATCH_REPS} calls)")
+
+    cpu = synthetic_batch_device(cfg, torch.Generator().manual_seed(5))
+    args = [cpu[k] for k in ("pc", "intensity", "P", "K")]
+    img_c, depth_c = _render(*args, H, W, torch.Generator(), True)
+    img_g, depth_g = _render(*(a.cuda() for a in args), H, W, gen, True)
+    mc, mg = img_c[..., 2] == 128.0, img_g[..., 2].cpu() == 128.0
+    agree = float((mc == mg).float().mean())
+    both = mc & mg
+    dz = float(((depth_g.cpu() - depth_c).abs()[both]
+                / depth_c[both]).max())
+    require(agree >= RENDER_AGREE,
+            f"device_data: render masks agree on {agree:.6f} of pixels")
+    log(f"device_data: _render card vs CPU on one CPU-made batch: masks "
+        f"agree on {agree:.6f} of pixels ({int(mc.sum())} point pixels), "
+        f"depth max rel diff {dz:.3e}")
+    del batch, cpu
+
+    run = _device_data_steps(torch, cfg)
+    log(f"device_data: train.cli --device-data, 2 epochs of {DD_STEPS} "
+        f"bf16 steps (B={B}, N={TRAIN_N}, {H}x{W}): {run['ms']:.3f} ms/step "
+        f"end to end, {run['samples_s']:.2f} samples/s (train phase, "
+        f"batches made before the clock: {train['ms']:.3f} ms/step, "
+        f"{train['samples_s']:.2f} samples/s); kNN launches "
+        f"{run['launches']} ({run['per_step']} per train step); validation "
+        f"batches bitwise equal across the epochs; losses "
+        + " ".join(f"{x:.4f}" for x in run["losses"][-4:]))
+
+    img_bytes = B * H * W * 3 * 4
+    biggest, copies, kernels = _htod_bytes(torch, cfg, DD_PROFILED)
+    require(biggest < img_bytes,
+            f"device_data: a {biggest}-byte host-to-device copy in "
+            f"{DD_PROFILED} steps (an image batch is {img_bytes})")
+    log(f"device_data: {DD_PROFILED} steps under torch.profiler: "
+        f"{copies} host-to-device copies, the largest {biggest} bytes "
+        f"(an image batch is {img_bytes}), {kernels} kernels")
+    return dict(ms_batch=ms_batch, **run)
+
+
+def _edge_codes(torch, pts, K, theta, H: int, W: int):
+    """Per point (B, I, N): which side of each frame edge, of the camera
+    plane and of the frame's centre lines (the kinks of the outside
+    residual) its projection under theta (B, I, 4) lies on."""
+    from deepi2p_tpu_torch.register.frustum_fast import _forward
+    xs, ys, zs = (pts[:, None, :, d] for d in range(3))
+    f = [K[:, None, i:i + 1, j] for i, j in ((0, 0), (1, 1), (0, 2), (1, 2))]
+    _, _, p2, px, py = _forward(theta, xs, ys, zs, *f)
+    W1, H1 = W - 1.0, H - 1.0
+    bits = [px < 0, px > W1, py < 0, py > H1, p2 <= 0, px > W1 / 2,
+            py > H1 / 2]
+    return sum(b.to(torch.int64) << i for i, b in enumerate(bits))
+
+
+def _theta_of(torch, P):
+    """2-D params [ry, tx, ty, tz] of poses (B, 4, 4)."""
+    ry = torch.atan2(P[:, 0, 2], P[:, 0, 0])
+    return torch.cat([ry[:, None], P[:, :3, 3]], dim=1)
+
+
+def _fast_solve_check(torch, cfg, dumps):
+    """``solve_frustum_batch(backend="fast")`` on the card against the
+    same call on the CPU from the same inits: poses within LM_THETA_ATOL
+    and costs within LM_COST_RTOL, apart from pairs whose best inits' points
+    lie on different sides of a frame edge (or centre line) in the two
+    answers."""
+    import numpy as np
+    from deepi2p_tpu_torch.register.frustum import (initial_guess,
+                                                    sample_inits,
+                                                    solve_frustum_batch)
+
+    def stack(field, dtype=torch.float32):
+        return torch.as_tensor(np.stack([d[field] for d in dumps])).to(dtype)
+
+    pc, K, pred = stack("pc"), stack("K"), stack("coarse_pred", torch.int64)
+    ang, _ = initial_guess(pc, pred)
+    theta0 = sample_inits(torch.Generator().manual_seed(0), ang, DEBUG_INITS)
+    kw = dict(H=cfg.img_H, W=cfg.img_W, max_iter=DEBUG_ITERS,
+              backend="fast")
+    t = time.perf_counter()
+    P_c, c_c = solve_frustum_batch(pc, pred, K, theta0=theta0, **kw)
+    cpu_s = time.perf_counter() - t
+    args = [x.cuda() for x in (pc, pred, K, theta0)]
+    solve_frustum_batch(args[0], args[1], args[2], theta0=args[3], **kw)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    P_g, c_g = solve_frustum_batch(args[0], args[1], args[2],
+                                   theta0=args[3], **kw)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t
+    P_g, c_g = P_g.cpu(), c_g.cpu()
+    pose_ok = ((P_g - P_c).abs().amax(dim=(1, 2)) <= LM_THETA_ATOL)
+    cost_ok = (c_g - c_c).abs() <= LM_COST_RTOL * c_c.abs()
+    agree = pose_ok & cost_ok
+    codes = [_edge_codes(torch, pc, K, _theta_of(torch, P)[:, None],
+                         cfg.img_H, cfg.img_W)[:, 0] for P in (P_g, P_c)]
+    crossed = (codes[0] != codes[1]).any(dim=1)
+    bad = ~agree & ~crossed
+    require(bool(torch.isfinite(c_g).all() and torch.isfinite(P_g).all()),
+            "debug: non-finite fast solve on the card")
+    require(not bool(bad.any()),
+            f"debug: fast solve card vs CPU differs in pairs "
+            f"{bad.nonzero().flatten().tolist()} with no point across a "
+            f"frame edge: pose diff {(P_g - P_c).abs().amax().item():.3e}, "
+            f"costs {c_g.tolist()} vs {c_c.tolist()}")
+    require(int(agree.sum()) * 2 >= len(agree),
+            f"debug: fast solve agrees on only {int(agree.sum())} pairs")
+    log(f"debug: solve_frustum_batch(backend='fast') B={len(dumps)}, "
+        f"N={pc.shape[1]}, {DEBUG_INITS} inits, {DEBUG_ITERS} iterations: "
+        f"card {card_s:.3f} s, CPU {cpu_s:.3f} s; {int(agree.sum())} of "
+        f"{len(agree)} pairs within {LM_THETA_ATOL} (pose) and "
+        f"{LM_COST_RTOL} (cost), {int((~agree & crossed).sum())} apart "
+        f"with points across a frame edge; max pose diff "
+        f"{(P_g - P_c).abs().amax().item():.3e}")
+
+
+def _debug_vis_cli(torch, cfg, dump_dir, vis_dir):
+    """``eval.cli solve --method frustum --debug-vis`` on the card: its
+    ``{"debug_vis": ...}`` lines, three decodable PNGs per prefix and
+    finite numbers."""
+    import contextlib as cl
+    import io
+    from deepi2p_tpu_torch.data.jpeg import read_png
+    from deepi2p_tpu_torch.eval import cli as eval_cli
+    from deepi2p_tpu_torch.register import lm_solve_cuda
+
+    lm_solve_cuda.launches = 0
+    out = io.StringIO()
+    t = time.perf_counter()
+    with cl.redirect_stdout(out):
+        summ = eval_cli.main(["solve", "--data-dir", dump_dir, "--method",
+                              "frustum", "--img-h", str(cfg.img_H),
+                              "--img-w", str(cfg.img_W), "--debug-vis",
+                              vis_dir])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    reports = [json.loads(x)["debug_vis"] for x in out.getvalue().splitlines()
+               if x.startswith('{"debug_vis"')]
+    require(len(reports) == 4, f"debug: {len(reports)} debug_vis lines")
+    for r in reports:
+        require(all(math.isfinite(r[k]) for k in ("final_cost", "rte",
+                                                  "rre")),
+                f"debug: non-finite report {r}")
+        for suffix in ("_trace.png", "_scene.png", "_overlay.png"):
+            img = read_png(f"{vis_dir}/{r['prefix']}{suffix}")
+            require(img.ndim == 3 and img.shape[0] > 100,
+                    f"debug: {r['prefix']}{suffix} {img.shape}")
+    require(math.isfinite(summ["rte_mean"]), f"debug: summary {summ}")
+    require(lm_solve_cuda.launches >= 2,
+            f"debug: {lm_solve_cuda.launches} LM launches in the solve")
+    log(f"debug: eval.cli solve --method frustum --debug-vis: {wall:.3f} s "
+        f"wall, 2-D LM launches {lm_solve_cuda.launches}; "
+        + "; ".join(json.dumps(r) for r in reports))
+
+
+def _modules_check(torch):
+    """``KNNModule``, ``KNNFusionModule`` and ``query_topk`` on the card
+    against the CPU, with the kNN kernel's launches."""
+    from deepi2p_tpu_torch.models.extra_layers import (KNNFusionModule,
+                                                       KNNModule)
+    from deepi2p_tpu_torch.ops.knn_cuda import knn_cuda
+    from deepi2p_tpu_torch.ops.som import query_topk
+
+    g = torch.Generator().manual_seed(0)
+    coords = torch.randn(8, TRAIN_NODES, 3, generator=g) * 10.0
+    feats = torch.randn(8, TRAIN_NODES, 64, generator=g)
+    pts = torch.randn(8, TRAIN_N, 3, generator=g) * 10.0
+    torch.manual_seed(0)
+    mods = [KNNModule(64, [64, 128], k=16).eval(),
+            KNNFusionModule(64, [64, 64], [128, 128], k=16).eval()]
+    err = 0.0
+    knn_cuda.launches = 0
+    for m in mods:
+        want = m(coords, feats)
+        got = m.cuda()(coords.cuda(), feats.cuda())
+        for w, o in zip(want, got):
+            scale = max(float(w.abs().max()), 1.0)
+            e = float((o.cpu() - w).abs().max()) / scale
+            require(e <= DEBUG_MODULE_RTOL,
+                    f"debug: {type(m).__name__} card vs CPU {e:.3e}")
+            err = max(err, e)
+    want = query_topk(coords, pts, TRAIN_NODES, 3)
+    got = query_topk(coords.cuda(), pts.cuda(), TRAIN_NODES, 3)
+    for w, o in zip(want, got):
+        require(torch.equal(o.cpu(), w), "debug: query_topk card vs CPU")
+    launches = knn_cuda.launches
+    require(launches == 3, f"debug: {launches} kNN launches, not 3")
+    log(f"debug: KNNModule, KNNFusionModule (k=16, {TRAIN_NODES} nodes) "
+        f"and query_topk (N={TRAIN_N}, k=3) card vs CPU: max rel diff "
+        f"{err:.3e}, query_topk equal; kNN launches {launches}")
+    return launches, err
+
+
+def _quality_gate(torch):
+    """The frustum gate of tests/test_torch_port_quality_gates.py on the
+    card: ring clouds from seed 0, labels corrupted by the port's
+    ``flip_border_band`` and ``flip_iid`` at the committed error
+    structure, the bench solve; at least 4 of 6 solved."""
+    import numpy as np
+    from deepi2p_tpu_torch.ops.projection import (coarse_labels,
+                                                  project_points)
+    from deepi2p_tpu_torch.register import noise
+    from deepi2p_tpu_torch.register.frustum import solve_frustum_batch
+    from deepi2p_tpu_torch.register.metrics import pose_diff_np
+
+    with open("tests/fixtures/error_structure.json") as f:
+        fix = json.load(f)
+    H, W = 160, 512
+    K = np.array([[300.0, 0, W / 2], [0, 300.0, H / 2], [0, 0, 1]],
+                 np.float32)
+    rng = np.random.default_rng(0)
+    pcs, labs, Ps = [], [], []
+    for _ in range(GATE_PAIRS):
+        yaw = rng.uniform(-np.pi, np.pi)
+        t = np.array([rng.uniform(-2, 2), 0.0, rng.uniform(-2, 2)],
+                     np.float32)
+        n = 4096
+        th, r = rng.uniform(0, 2 * np.pi, n), rng.uniform(5, 40, n)
+        pc = np.stack([r * np.cos(th), rng.uniform(-2, 2, n),
+                       r * np.sin(th)], -1).astype(np.float32)
+        c, s = np.cos(yaw), np.sin(yaw)
+        P = np.eye(4, dtype=np.float32)
+        P[:3, :3] = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]], np.float32)
+        P[:3, 3] = t
+        pxpy, z = project_points(torch.as_tensor(pc[None]),
+                                 torch.as_tensor(P[None, :3]),
+                                 torch.as_tensor(K[None]))
+        labels = coarse_labels(pxpy, z, H, W)[0].numpy()
+        labels = noise.flip_border_band(rng, labels, pc, P, K, H, W,
+                                        band_px=fix["band_px"],
+                                        rate=fix["band_error_rate"])
+        labels = noise.flip_iid(rng, labels, fix["offband_error_rate"])
+        pcs.append(pc), labs.append(labels), Ps.append(P)
+    P_pred, _ = solve_frustum_batch(
+        torch.as_tensor(np.stack(pcs)).cuda(),
+        torch.as_tensor(np.stack(labs).astype(np.float32)).cuda(),
+        torch.as_tensor(np.tile(K, (GATE_PAIRS, 1, 1))).cuda(), H=H, W=W,
+        generator=torch.Generator().manual_seed(0), n_inits=N_INITS,
+        max_iter=MAX_ITER, solver_stride=SOLVER_STRIDE)
+    errs = [pose_diff_np(P_pred[b].double().cpu().numpy(),
+                         Ps[b].astype(np.float64)) for b in range(GATE_PAIRS)]
+    ok = sum(rte < 2.0 and rre < 5.0 for rte, rre in errs)
+    gate = fix.get("gate_min_success", 4)
+    require(ok >= gate, f"debug: frustum gate {ok}/{GATE_PAIRS} < {gate}")
+    log(f"debug: frustum quality gate on the card (border band "
+        f"{fix['band_error_rate']}, off band {fix['offband_error_rate']}, "
+        f"port noise models): {ok}/{GATE_PAIRS} solved (gate {gate})")
+
+
+def debug_phase(torch, cfg, raw):
+    """The debug images and the library modules on the card: the eval
+    phase's dump made again with ``viz_dir``, the fast 2-D LM against the
+    CPU, ``eval.cli solve --debug-vis``, the kNN layers and the frustum
+    quality gate under the port's noise models."""
+    from deepi2p_tpu_torch.data.jpeg import read_png
+    from deepi2p_tpu_torch.eval.dump import (dump_predictions,
+                                             list_dump_prefixes, load_dump)
+    from deepi2p_tpu_torch.models import build_detector
+
+    model = build_detector(cfg, device="cuda", seed=0)
+    with tempfile.TemporaryDirectory(prefix="deepi2p_debug_") as tmp:
+        dump_dir, viz, vis = f"{tmp}/dump", f"{tmp}/viz", f"{tmp}/vis"
+        t = time.perf_counter()
+        dump_predictions(model, [raw], cfg, dump_dir, viz_dir=viz)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        prefixes = list_dump_prefixes(dump_dir)
+        for p in prefixes:
+            for suffix in ("_img.png", "_prediction.png"):
+                img = read_png(f"{viz}/{p}{suffix}")
+                require(img.shape[2] == 3, f"debug: {p}{suffix} {img.shape}")
+        log(f"debug: dump_predictions(viz_dir=...) of the eval batch: "
+            f"{wall:.3f} s, {len(prefixes)} samples x 2 PNGs decoded")
+        del model
+        _fast_solve_check(torch, cfg, [load_dump(dump_dir, p) for p in
+                                       prefixes[:DEBUG_FAST_PAIRS]])
+        _debug_vis_cli(torch, cfg, dump_dir, vis)
+    launches, err = _modules_check(torch)
+    _quality_gate(torch)
+    return dict(knn_launches=launches, module_err=err)
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     import torch
@@ -2572,6 +3032,10 @@ def main() -> int:
         train = train_phase(torch)
     with torch.enable_grad(), phase("data"):
         data = data_phase(torch, train)
+    with torch.enable_grad(), phase("device_data"):
+        device_data = device_data_phase(torch, train)
+    with torch.no_grad(), phase("debug"):
+        debug = debug_phase(torch, eval_cfg, eval_raw)
 
     lm_src = "deepi2p_tpu_torch/csrc/frustum_lm.cu"
     kernels = [
@@ -2580,6 +3044,8 @@ def main() -> int:
              launches=launches["knn"],
              train_launches_per_step=train["launches_per_step"],
              data_launches_per_step=data["knn_per_step"],
+             device_data_launches_per_step=device_data["per_step"],
+             debug_launches=debug["knn_launches"],
              **{**knn_row, "max_abs_err": max(knn_row["max_abs_err"],
                                               train["knn_err"])}),
         dict(name="lm_p4", route="cuda", source=lm_src,

@@ -15,7 +15,8 @@
     # 2. solve + report RTE/RRE/success
     python -m deepi2p_tpu_torch.eval.cli solve --data-dir runs/dump \\
         --method frustum|pnp|icp|random --img-h 160 --img-w 512 \\
-        [--pseudo-dir runs/pseudo] [--device cpu]
+        [--pseudo-dir runs/pseudo] [--debug-vis DIR [--debug-vis-max 4]] \\
+        [--device cpu]
 
 ``dump`` writes the reference's npy contract (the same files as the JAX
 package's ``dump`` for the same dataset and weights) and prints the coarse
@@ -35,6 +36,10 @@ reference's ``save_depth_map.py`` stage) runs a DepthNet written by the
 port's ``train.depth_cli`` (``depth.npz``) over every ``{prefix}_img.npy``
 of a dump written with ``--save-images`` and writes ``{prefix}_pc.npy``,
 the clouds ``solve --method icp --pseudo-dir`` registers against.
+``solve --debug-vis DIR`` also writes, for the first ``--debug-vis-max``
+samples, the solver's trace, TP/FP/FN scene and iteration overlay as PNGs
+(``eval/debug_vis.py``) and prints one ``{"debug_vis": ...}`` line for each
+before the summary.
 """
 from __future__ import annotations
 
@@ -110,6 +115,10 @@ def _solve_args(s):
     s.add_argument("--icp-seed", default="none", choices=["none", "frustum"],
                    help="icp: seed half the inits around the frustum "
                         "solution from the same predictions")
+    s.add_argument("--debug-vis", default=None, metavar="DIR",
+                   help="write per-sample solver debug images (trace, "
+                        "TP/FP/FN scene, iteration overlay) to DIR")
+    s.add_argument("--debug-vis-max", type=int, default=4)
     s.add_argument("--device", default="cuda",
                    help="torch device of the solvers (default: the card; "
                         "'cpu' runs the kernels' plain versions)")
@@ -228,6 +237,14 @@ def solve(args):
         inside_threshold=args.inside_threshold,
         icp_coarse_threshold=args.icp_coarse_threshold,
         icp_seed=args.icp_seed, device=args.device)
+    if args.debug_vis:
+        from .debug_vis import debug_report
+        from .dump import list_dump_prefixes
+        for p in list_dump_prefixes(args.data_dir)[:args.debug_vis_max]:
+            r = debug_report(args.data_dir, p, H=args.img_h, W=args.img_w,
+                             out_dir=args.debug_vis,
+                             use_labels=args.use_labels, device=args.device)
+            print(json.dumps({"debug_vis": r}))
     print(json.dumps(summ, indent=2))
     return summ
 

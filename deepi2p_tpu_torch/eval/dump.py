@@ -8,7 +8,9 @@ package's ``eval/dump.py`` (reference
     {prefix}_P.npy          -- (3, 4) f32 ground-truth pose
 
 and optionally ``{prefix}_p.npy`` (N,) inside probabilities and
-``{prefix}_img.npy`` the input image.  The files are byte for byte what
+``{prefix}_img.npy`` the input image; ``viz_dir`` receives the PNGs
+``{prefix}_img.png`` and ``{prefix}_prediction.png`` (the TP/FP/FN
+overlay of :func:`~..utils.vis.classification_overlay`).  The files are byte for byte what
 the JAX package writes, so dumps flow between the two packages and into
 the reference's solvers.
 """
@@ -176,6 +178,7 @@ class SubsampleEnsemble:
 def dump_predictions(engine, batches: Iterable[Dict], cfg: Config,
                      out_dir: str, *, state=None,
                      max_batches: Optional[int] = None,
+                     viz_dir: Optional[str] = None,
                      save_images: bool = False,
                      inside_threshold: Optional[float] = None,
                      save_probs: bool = False):
@@ -191,6 +194,9 @@ def dump_predictions(engine, batches: Iterable[Dict], cfg: Config,
     threshold``.  ``save_probs`` also writes ``{prefix}_p.npy`` (the
     inside probability; the decision is then ``p_inside > 0.5``, the same
     argmax from one forward), ``save_images`` ``{prefix}_img.npy``.
+    ``viz_dir`` also writes ``{prefix}_img.png`` (the input image cast to
+    uint8) and ``{prefix}_prediction.png`` (the TP/FP/FN overlay), as the
+    reference (``visualize_and_save_data.py:168-186``).
 
     Returns (coarse_accuracy, fine_accuracy) over the dumped set
     (``visualize_and_save_data.py:141-148,216-217``).
@@ -200,6 +206,10 @@ def dump_predictions(engine, batches: Iterable[Dict], cfg: Config,
         engine = Engine(state.cfg, device=next(state.parameters()).device)
     dev = engine.device
     os.makedirs(out_dir, exist_ok=True)
+    if viz_dir:
+        from ..utils.png import write_png
+        from ..utils.vis import classification_overlay
+        os.makedirs(viz_dir, exist_ok=True)
     n_total = n_coarse_ok = n_inside = n_fine_ok = 0
     idx = 0
     for bi, batch in enumerate(batches):
@@ -224,6 +234,7 @@ def dump_predictions(engine, batches: Iterable[Dict], cfg: Config,
         fine_lab = labels.fine.cpu().numpy()
         if p_inside is not None:
             p_inside = p_inside.cpu().numpy()
+        pxpy = labels.pxpy.cpu().numpy() if viz_dir else None
         B, N = coarse_pred.shape
         n_total += B * N
         n_coarse_ok += int((coarse_pred == coarse_lab).sum())
@@ -246,5 +257,14 @@ def dump_predictions(engine, batches: Iterable[Dict], cfg: Config,
             if save_images:
                 np.save(os.path.join(out_dir, prefix + "_img.npy"),
                         np.asarray(batch["img"][b], np.float32))
+            if viz_dir:
+                img = np.asarray(batch["img"][b]).astype(np.uint8)
+                write_png(os.path.join(viz_dir, prefix + "_img.png"), img)
+                write_png(os.path.join(viz_dir, prefix + "_prediction.png"),
+                          classification_overlay(
+                              pxpy[b], coarse_pred[b], coarse_lab[b], img,
+                              fine_pred=fine_pred[b],
+                              fine_label=fine_lab[b],
+                              fine_scale=cfg.img_fine_resolution_scale))
             idx += 1
     return n_coarse_ok / max(n_total, 1), n_fine_ok / max(n_inside, 1)

@@ -287,3 +287,57 @@ def flax_from_depth_state_dict(sd: Dict) -> Dict:
             node = node.setdefault(p, {})
         node[path[-1]] = np.ascontiguousarray(arr)
     return {"params": tree}
+
+
+# --------------------------------------------------------------------------
+# The layer library (models/extra_layers.py)
+# --------------------------------------------------------------------------
+
+_NORM_KINDS = ("BatchNorm_0", "GroupNorm_0")
+_BN_LEAF = {"scale": "weight", "bias": "bias", "mean": "running_mean",
+            "var": "running_var"}
+_DENSE_RE = re.compile(r"^(dense|norm)_(\d+)$")
+
+
+def _extra_name(path: Tuple[str, ...]) -> str:
+    """A flax path of an ``extra_layers`` module -> the port's name."""
+    *mods, leaf = path
+    if len(mods) >= 2 and mods[-1] in _NORM_KINDS:
+        # a NormLayer: PointNetMLP's norm_{i}, or a block's "norm"
+        m = _DENSE_RE.match(mods[-2])
+        base = (mods[:-2] + ["layers", m.group(2), "norm"] if m
+                else mods[:-1])
+        return ".".join(base + [_BN_LEAF[leaf]])
+    if mods and _DENSE_RE.match(mods[-1]):
+        i = _DENSE_RE.match(mods[-1]).group(2)
+        return ".".join(mods[:-1] + ["layers", i, "conv",
+                                     "weight" if leaf == "kernel" else leaf])
+    if mods and mods[-1].endswith("_bn"):
+        return ".".join(mods + [_BN_LEAF[leaf]])
+    return ".".join(mods + ["weight" if leaf == "kernel" else leaf])
+
+
+def extra_state_dict_from_flax(params: Dict, batch_stats: Optional[Dict] = None
+                               ) -> Dict[str, np.ndarray]:
+    """The variables of a flax module of ``extra_layers`` (its ``params``
+    and ``batch_stats`` trees, with or without their root key) -> the
+    state_dict of the port's module of the same name and sizes: Dense
+    kernels (Cin, Cout) -> Linear weights (Cout, Cin), convolution kernels
+    HWIO -> OIHW, norm ``scale``/``mean``/``var`` -> ``weight``/
+    ``running_mean``/``running_var``."""
+    sd: Dict[str, np.ndarray] = {}
+
+    def walk(node, path):
+        for key, value in node.items():
+            if isinstance(value, dict):
+                walk(value, path + (key,))
+                continue
+            arr = _np(value)
+            if key == "kernel":
+                arr = arr.T if arr.ndim == 2 else arr.transpose(3, 2, 0, 1)
+            sd[_extra_name(path + (key,))] = np.array(arr, np.float32,
+                                                      order="C")
+    walk(params.get("params", params), ())
+    if batch_stats:
+        walk(batch_stats.get("batch_stats", batch_stats), ())
+    return sd

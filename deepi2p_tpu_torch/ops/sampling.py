@@ -1,8 +1,9 @@
-"""Host-side point sampling (numpy): farthest-point sampling, voxel-grid
-downsampling and random resampling for the data path.
+"""Point sampling: farthest-point sampling, voxel-grid downsampling and
+random resampling for the data path (numpy, host-side), and
+:func:`farthest_point_sample` on a device (torch).
 
-The port's copy of the numpy half of the JAX package's
-``ops/sampling.py``; each function draws from its generator exactly as
+The numpy functions are the port's copy of the numpy half of the JAX
+package's ``ops/sampling.py``; each function draws from its generator exactly as
 the JAX one does, so one seed gives one result in both packages
 (``tests/test_torch_port_data_sampling.py``).  The voxel average sums
 each column with ``np.bincount`` in float64 and in input order, the same
@@ -11,6 +12,7 @@ sums ``np.add.at`` forms there, at about a third of the time.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def farthest_point_sample_np(pts: np.ndarray, k: int,
@@ -27,6 +29,46 @@ def farthest_point_sample_np(pts: np.ndarray, k: int,
         idx[i] = int(np.argmax(d))
         d = np.minimum(d, np.sum((pts - pts[idx[i]]) ** 2, axis=1))
     return pts[idx], idx
+
+
+def farthest_point_sample(pts: torch.Tensor, k: int,
+                          generator: torch.Generator | None = None, *,
+                          first=None) -> torch.Tensor:
+    """FPS on the device of ``pts`` (..., N, D) -> indices (..., k) int32,
+    the JAX package's ``farthest_point_sample``: a first index, then k - 1
+    times the point farthest from those chosen (ties to the lowest
+    index).  The first index is ``first`` (an int or a (...,) tensor) or
+    a draw from ``generator`` (on its device); one of them is needed.
+    Squared distances sum the coordinates in order."""
+    *lead, n, D = pts.shape
+    p = pts.reshape(-1, n, D)
+    B = p.shape[0]
+    if first is None:
+        if generator is None:
+            raise ValueError("farthest_point_sample needs a generator or "
+                             "first=")
+        first = torch.randint(0, n, (B,), generator=generator,
+                              device=generator.device)
+    cur = torch.as_tensor(first, device=p.device).to(torch.int64)
+    cur = cur.reshape(-1).expand(B).clone()
+    rows = torch.arange(B, device=p.device)
+
+    def dist_to(i):
+        c = p[rows, i]                                        # (B, D)
+        d = None
+        for j in range(D):
+            diff = p[..., j] - c[:, j:j + 1]
+            d = diff * diff if d is None else d + diff * diff
+        return d
+
+    idx = torch.zeros(B, k, dtype=torch.int64, device=p.device)
+    idx[:, 0] = cur
+    dist = dist_to(cur)
+    for i in range(1, k):
+        cur = torch.argmax(dist, dim=1)
+        idx[:, i] = cur
+        dist = torch.minimum(dist, dist_to(cur))
+    return idx.reshape(*lead, k).to(torch.int32)
 
 
 def _voxel_mean(inv: np.ndarray, counts: np.ndarray,

@@ -17,6 +17,11 @@ A weighted or margin-relaxed cost (``outside_weight != 1``,
 instead, the counterpart of the JAX package's autodiff ``lm_solve``
 (``frustum.py:216-283``, its ``backend="generic"``): every init for the
 full budget, Jacobian by forward-mode autodiff, no kernel.
+
+``backend="fast"`` takes the JAX package's XLA route instead
+(``frustum.py:478-496``): the analytic-Jacobian LM of
+:mod:`.frustum_fast`, plain PyTorch on every device, keeping a quarter of
+the inits after the probe.
 """
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from .frustum_cuda import _chol_solve, _clip_t, lm_solve
+from .frustum_fast import lm_solve_fast
 
 I_BLK = 8          # init block of the JAX package's Pallas kernel
 
@@ -269,7 +275,8 @@ def solve_frustum_batch(pc, pred_inside, K, *, H: int, W: int,
                         theta0=None, probe_stride: Optional[int] = None,
                         survivors: Optional[int] = None,
                         outside_weight: float = 1.0,
-                        point_weights=None, edge_margin_px: float = 0.0):
+                        point_weights=None, edge_margin_px: float = 0.0,
+                        backend: str = "auto"):
     """Multi-init frustum solve for a batch of pairs.
 
     Args:
@@ -289,6 +296,22 @@ def solve_frustum_batch(pc, pred_inside, K, *, H: int, W: int,
       outside_weight / point_weights (B, N) / edge_margin_px: a weighted or
         margin-relaxed cost; any of them routes the solve to
         :func:`lm_solve_generic` (full budget for every init, no halving).
+      backend: the LM route, by the JAX package's names:
+        ``"kernel"`` -- the LM kernel (:func:`.frustum_cuda.lm_solve`; its
+          plain version on the CPU) with the halving of JAX's
+          ``"pallas"``: inits padded to a multiple of 8, the best eighth
+          refined;
+        ``"fast"`` -- JAX's ``"xla"``, 2-D only:
+          :func:`.frustum_fast.lm_solve_fast` for ``min(8, max_iter)``
+          probe iterations on the solver-stride points (no probe stride),
+          then, with at least 8 inits, the best ``max(I // 4, 4)`` (or
+          ``max(min(survivors, I), 4)``) by a stable sort refined for the
+          rest, no padding;
+        ``"generic"`` -- JAX's ``"generic"``, :func:`lm_solve_generic`;
+        ``"auto"`` -- ``"kernel"`` on every device (JAX's ``"auto"`` takes
+          ``"xla"`` off the TPU).
+        A weighted or margin-relaxed cost goes to ``"generic"`` whatever
+        the backend, as in the JAX package.
     Returns:
       (P (B, 4, 4), cost (B,)); a pair with no inside points gets the
       identity pose and cost 1e4.
@@ -310,8 +333,13 @@ def solve_frustum_batch(pc, pred_inside, K, *, H: int, W: int,
 
     labels = pred_inside.to(pc.dtype)
     pc_s, lab_s, val_s = (sub(x, solver_stride) for x in (pc, labels, valid))
-    generic = (outside_weight != 1.0 or point_weights is not None
-               or edge_margin_px != 0.0)
+    if backend not in ("auto", "kernel", "fast", "generic"):
+        raise ValueError(f"unknown backend {backend!r}")
+    if backend == "fast" and not is_2d:
+        raise ValueError("backend='fast' is the 2-D LM; the 6-DoF mode "
+                         "takes 'kernel' or 'generic'")
+    generic = (backend == "generic" or outside_weight != 1.0
+               or point_weights is not None or edge_margin_px != 0.0)
     if generic:
         pw_s = (None if point_weights is None
                 else sub(point_weights.to(pc.dtype), solver_stride))
@@ -321,6 +349,22 @@ def solve_frustum_batch(pc, pred_inside, K, *, H: int, W: int,
                                point_weights=pw_s,
                                edge_margin_px=float(edge_margin_px))
         thetas, costs = res.theta, res.cost
+    elif backend == "fast":
+        probe_iter = min(8, max_iter)
+        fast = dict(H=H, W=W)
+        thetas, costs, _ = lm_solve_fast(pc_s, lab_s, val_s, K, theta0,
+                                         t_lb, t_ub, max_iter=probe_iter,
+                                         **fast)
+        I = theta0.shape[1]
+        if max_iter > probe_iter and I >= 8:
+            keep = (max(I // 4, 4) if survivors is None
+                    else max(min(survivors, I), 4))
+            top = torch.argsort(costs, dim=1, stable=True)[:, :keep]
+            theta_top = torch.gather(thetas, 1,
+                                     top[:, :, None].expand(-1, -1, P_dim))
+            thetas, costs, _ = lm_solve_fast(
+                pc_s, lab_s, val_s, K, theta_top, t_lb, t_ub,
+                max_iter=max_iter - probe_iter, **fast)
     else:
         # a multiple of I_BLK inits, padded by repeating the first (never a
         # new draw), as the JAX package's Pallas branch does

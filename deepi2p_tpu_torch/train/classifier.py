@@ -5,9 +5,8 @@ package's ``train/classifier.py``: the public surface of the reference's
 ``optimize`` / ``test_model`` / ``inference_pass`` / ``save_network`` /
 ``load_model`` / ``update_learning_rate``, on
 :class:`~.engine.Engine`.  The coarse-only variant is
-``cfg.is_fine_resolution=False``.  The reference's image overlays
-(``write_classification_visualization``) wait for the port of
-``utils/vis`` (``ROADMAP.md`` A.12).
+``cfg.is_fine_resolution=False``.  ``write_classification_visualization``
+logs the reference's TP/FP/FN overlays through the logger's ``log_image``.
 """
 from __future__ import annotations
 
@@ -113,6 +112,43 @@ class MMClassifier:
         if accuracy_dict:
             parts += [f"{k}: {v:.4f}," for k, v in accuracy_dict.items()]
         print(" ".join(parts))
+
+    def write_classification_visualization(self,
+                                           out_step: Optional[int] = None):
+        """Project the staged batch's cloud and log the TP/FP/FN overlays
+        of up to ``cfg.vis_max_batch`` samples tiled two per row
+        (``multimodal_classifier.py:338-377``); returns the canvas, or
+        None without a logger."""
+        from ..ops.projection import generate_labels
+        from ..utils.vis import classification_overlay, grid
+        if self.logger is None:
+            return None
+        preds = self.inference_pass()
+        coarse_pred, fine_pred = (preds if self.cfg.is_fine_resolution
+                                  else (preds, None))
+        labels = generate_labels(self._batch["pc"], self._batch["P"],
+                                 self._batch["K"], self.cfg.img_H,
+                                 self.cfg.img_W,
+                                 self.cfg.img_fine_resolution_scale)
+
+        def host(x):
+            return None if x is None else x.detach().cpu().numpy()
+
+        pxpy, coarse_lab, fine_lab = (host(labels.pxpy), host(labels.coarse),
+                                      host(labels.fine))
+        coarse_pred, fine_pred = host(coarse_pred), host(fine_pred)
+        img = host(self._batch["img"])
+        n = min(self.cfg.vis_max_batch, img.shape[0])
+        canvas = grid([classification_overlay(
+            pxpy[b], coarse_pred[b], coarse_lab[b], img[b],
+            fine_pred=None if fine_pred is None else fine_pred[b],
+            fine_label=fine_lab[b],
+            fine_scale=self.cfg.img_fine_resolution_scale)
+            for b in range(n)], cols=2)
+        self.logger.log_image("classification", canvas,
+                              out_step if out_step is not None
+                              else self.global_step)
+        return canvas
 
     def update_learning_rate(self, ratio: float):  # noqa: ARG002
         """No-op beyond reporting the rate: the schedule

@@ -24,11 +24,18 @@ either ``eval.cli dump`` read).  ``--resume`` restores the latest
 checkpoint and wins over ``--warm-start``; both floor the step to its
 epoch's start, so an interrupted epoch runs again from its beginning.
 
+``--device-data`` (``--dataset synthetic`` only) makes every batch on the
+training device (:func:`~..data.synthetic_device.synthetic_batch_device`):
+no loader thread, pinned buffer or host copy.  Train batch ``i`` of epoch
+``e`` comes from a generator seeded with :func:`device_seed` of ``(seed +
+424242, e, i)``, a fresh scene every step; validation takes the same
+``max(len(val) // batch_size, 1)`` batches every epoch, seeded with
+``(seed + 31337, i)``.
+
 What is not ported is refused with the ``ROADMAP.md`` item that holds it,
-never ignored: ``--mesh-model > 1`` (A.13), ``--device-data`` (A.12,
-``synthetic_jax``) and ``--steps-per-dispatch > 1`` (A.9: the JAX scan of
-K steps exists for a remote TPU's dispatch latency; its counterpart here
-is a CUDA graph of K steps).
+never ignored: ``--mesh-model > 1`` (A.13) and ``--steps-per-dispatch > 1``
+(A.9: the JAX scan of K steps exists for a remote TPU's dispatch latency;
+its counterpart here is a CUDA graph of K steps).
 """
 from __future__ import annotations
 
@@ -36,10 +43,12 @@ import argparse
 import os
 import time
 
+import numpy as np
 import torch
 
 from .. import config as config_mod
 from ..data import BatchLoader, SyntheticDataset, device_prefetch
+from ..data.synthetic_device import synthetic_batch_device
 from ..utils.logging import MetricsLogger
 from .checkpoint import CheckpointManager, export_npz, warm_start_npz
 from .engine import Engine
@@ -52,9 +61,8 @@ def refusal(args) -> str:
     if args.mesh_model > 1:
         return ("--mesh-model > 1 is not ported yet: multi-card training "
                 "waits for ROADMAP.md A.13")
-    if args.device_data:
-        return ("--device-data is not ported yet: synthetic_jax waits for "
-                "ROADMAP.md A.12")
+    if args.device_data and args.dataset != "synthetic":
+        return "--device-data requires --dataset synthetic"
     if args.steps_per_dispatch > 1:
         return ("--steps-per-dispatch > 1 is not ported yet: a CUDA graph "
                 "of K steps waits for ROADMAP.md A.9")
@@ -153,7 +161,7 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--steps-per-dispatch", type=int, default=1,
                    help="refused above 1 (ROADMAP.md A.9)")
     p.add_argument("--device-data", action="store_true",
-                   help="refused (ROADMAP.md A.12)")
+                   help="synthetic: make every batch on the training device")
     p.add_argument("--warm-start", default="",
                    help="export_npz file to start from when no checkpoint "
                         "is resumed (fresh Adam moments)")
@@ -163,6 +171,21 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device (default: the card)")
     return p
+
+
+def device_seed(*parts: int) -> int:
+    """The seed of one device-data generator:
+    ``np.random.SeedSequence(parts).generate_state(1)[0]``."""
+    return int(np.random.SeedSequence([int(p) for p in parts])
+               .generate_state(1)[0])
+
+
+def device_batches(cfg, device, seeds):
+    """One :func:`synthetic_batch_device` batch on ``device`` for each
+    tuple of seed parts in ``seeds``."""
+    for parts in seeds:
+        gen = torch.Generator(device=device).manual_seed(device_seed(*parts))
+        yield synthetic_batch_device(cfg, gen)
 
 
 def main(argv=None):
@@ -224,10 +247,16 @@ def main(argv=None):
         t_epoch = time.time()
         if hasattr(train_ds, "set_epoch"):
             train_ds.set_epoch(epoch)
-        loader = BatchLoader(train_ds, cfg.batch_size, shuffle=True,
-                             num_workers=args.workers,
-                             seed=args.seed + epoch)
-        for batch in device_prefetch(loader, engine.device):
+        if args.device_data:
+            stream = device_batches(cfg, engine.device, (
+                (args.seed + 424242, epoch, i)
+                for i in range(steps_per_epoch)))
+        else:
+            stream = device_prefetch(
+                BatchLoader(train_ds, cfg.batch_size, shuffle=True,
+                            num_workers=args.workers,
+                            seed=args.seed + epoch), engine.device)
+        for batch in stream:
             state, metrics = engine.train_step(state, batch, generator)
             step = state.step
             if args.ckpt_every and step - last_ckpt >= args.ckpt_every:
@@ -244,9 +273,16 @@ def main(argv=None):
 
         # per-epoch validation (kitti/train_classifier.py:101-137)
         agg, n = {}, 0
-        val_loader = BatchLoader(val_ds, cfg.batch_size, shuffle=False,
-                                 num_workers=args.workers)
-        for batch in device_prefetch(val_loader, engine.device):
+        if args.device_data:
+            # the same validation scenes every epoch
+            val_stream = device_batches(cfg, engine.device, (
+                (args.seed + 31337, i)
+                for i in range(max(len(val_ds) // cfg.batch_size, 1))))
+        else:
+            val_stream = device_prefetch(
+                BatchLoader(val_ds, cfg.batch_size, shuffle=False,
+                            num_workers=args.workers), engine.device)
+        for batch in val_stream:
             for k, v in engine.eval_step(state, batch).items():
                 agg[k] = agg.get(k, 0.0) + float(v)
             n += 1

@@ -7,7 +7,9 @@ The event file is written with ``tensorboard``'s protos and record
 framing only: ``torch.utils.tensorboard`` and ``tensorboard``'s own
 ``EventFileWriter`` import TensorFlow, and with it JAX, where they are
 installed.  Each value of ``log_scalars(tag, values)`` is the scalar
-``tag/name``."""
+``tag/name``.  ``log_image`` writes ``{tag}_{step}.png`` (``/`` in the tag
+becomes ``_``) with the port's own PNG encoder, and the same PNG as an
+image summary of the event file."""
 from __future__ import annotations
 
 import itertools
@@ -16,6 +18,10 @@ import os
 import socket
 import time
 from typing import Dict
+
+import numpy as np
+
+from .png import encode_png
 
 _FILE_IDS = itertools.count()
 
@@ -45,6 +51,15 @@ class _EventFile:
             summary=S(value=[S.Value(tag=f"{tag}/{k}", simple_value=v)
                              for k, v in values.items()])))
 
+    def add_image(self, tag: str, png: bytes, height: int, width: int,
+                  channels: int, step: int):
+        S = self._summary
+        image = S.Image(height=height, width=width, colorspace=channels,
+                        encoded_image_string=png)
+        self._write(self._event(wall_time=time.time(), step=step,
+                                summary=S(value=[S.Value(tag=tag,
+                                                         image=image)])))
+
     def close(self) -> None:
         self._records.close()
 
@@ -66,6 +81,19 @@ class MetricsLogger:
         self._jsonl.flush()
         if self._tb is not None:
             self._tb.add_scalars(tag, vals, step)
+
+    def log_image(self, tag: str, image, step: int):
+        """image: (H, W, 3) RGB or (H, W) gray, uint8."""
+        img = np.asarray(image)
+        png = encode_png(img)
+        path = os.path.join(self.log_dir,
+                            f"{tag.replace('/', '_')}_{step}.png")
+        with open(path, "wb") as f:
+            f.write(png)
+        if self._tb is not None:
+            ch = img.shape[2] if img.ndim == 3 else 1
+            self._tb.add_image(tag, png, img.shape[0], img.shape[1], ch,
+                               step)
 
     def close(self):
         self._jsonl.close()

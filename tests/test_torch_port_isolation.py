@@ -1,5 +1,7 @@
-"""The port stands alone: it imports without JAX, flax, orbax, optax or
-the JAX package, its TensorBoard sink writes without TensorFlow, its
+"""The port stands alone: it imports without JAX, flax, orbax, optax,
+the JAX package, OpenCV, matplotlib or PIL, its TensorBoard sink writes
+without TensorFlow, its debug images and dump overlays are written in
+that process, its
 entry points refuse to fall back to the CPU, its KITTI and Oxford loaders
 run without OpenCV (JPEGs through the port's own decoder), its native
 build reads only the port's sources, and ``chip_smoke.py`` fails without
@@ -19,7 +21,7 @@ REPO = Path(__file__).resolve().parents[1]
 ISOLATED = r'''
 import importlib, pkgutil, sys
 REFUSED = ("jax", "jaxlib", "flax", "orbax", "optax", "deepi2p_tpu",
-           "cv2")
+           "cv2", "matplotlib", "PIL")
 
 class Refuse:
     def find_spec(self, name, path=None, target=None):
@@ -49,10 +51,13 @@ for new in ("ops.projection", "register.icp", "eval.dump", "eval.depth",
             "train.cli", "train.classifier", "utils.logging", "ops.sampling",
             "data.augmentation", "data.base", "data.native", "data.kitti",
             "data.oxford", "data.nuscenes_tables", "data.jpeg",
-            "models.depth", "train.depth_cli"):
+            "models.depth", "train.depth_cli", "data.synthetic_device",
+            "register.frustum_fast", "register.noise", "utils.png",
+            "utils.vis", "eval.debug_vis", "ops.ball_query", "ops.som",
+            "models.extra_layers", "train.aux_losses", "utils.profiling"):
     assert "deepi2p_tpu_torch." + new in names, new
 
-import tempfile
+import os, tempfile
 import numpy as np
 import torch
 from deepi2p_tpu_torch import config
@@ -80,13 +85,38 @@ for call in (lambda: build_detector(config.tiny()),
              lambda: MMClassifier(config.tiny()),
              lambda: next(device_prefetch([{"x": np.zeros(2)}])),
              lambda: train_main(["--checkpoints-dir", run_dir + "/ck",
-                                 "--log-dir", run_dir + "/log"])):
+                                 "--log-dir", run_dir + "/log"]),
+             lambda: train_main(["--device-data", "--checkpoints-dir",
+                                 run_dir + "/ck", "--log-dir",
+                                 run_dir + "/log"]),
+             lambda: __import__("deepi2p_tpu_torch.eval.debug_vis",
+                                fromlist=["x"]).debug_report(
+                 dump_dir, "000000_00", H=8, W=8, out_dir=run_dir)):
     try:
         call()
     except RuntimeError as e:
         assert "CUDA" in str(e), e
     else:
         raise SystemExit("an entry point ran without a card")
+
+# the debug report and the dump's overlays, end to end, on the CPU
+from deepi2p_tpu_torch.data.jpeg import read_png
+from deepi2p_tpu_torch.eval.debug_vis import debug_report
+from deepi2p_tpu_torch.eval.dump import dump_predictions
+cfg = config.tiny()
+viz_dir, dump2 = tempfile.mkdtemp(), tempfile.mkdtemp()
+dump_predictions(build_detector(cfg, device="cpu", seed=0),
+                 [synthetic_batch(cfg, seed=0)], cfg, dump2,
+                 viz_dir=viz_dir, save_images=True)
+rep = debug_report(dump2, "000000_00", H=cfg.img_H, W=cfg.img_W,
+                   out_dir=viz_dir, n_steps=4, device="cpu")
+assert set(rep) == {"prefix", "final_cost", "rte", "rre"}, rep
+for f in ("000000_00_img.png", "000000_00_prediction.png",
+          "000001_00_prediction.png", "000000_00_trace.png",
+          "000000_00_scene.png", "000000_00_overlay.png"):
+    assert read_png(os.path.join(viz_dir, f)).ndim == 3, f
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
+assert not leaked, leaked
 print("isolated ok", len(names))
 '''
 

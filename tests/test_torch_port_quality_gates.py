@@ -1,6 +1,7 @@
 """The JAX package's solver quality gates on the port's solve
-(``tests/test_frustum.py:182`` and ``:294``), with the JAX package's
-``register/noise.py`` and the committed ``tests/fixtures/
+(``tests/test_frustum.py:182`` and ``:294``), with the port's
+``register/noise.py`` (bitwise the JAX package's,
+``tests/test_torch_port_noise.py``) and the committed ``tests/fixtures/
 error_structure.json``, at the same gates; and the successive-halving
 knobs: the defaults leave the launch plan unchanged, and the harness
 forwards ``probe_stride`` / ``survivors`` to the same solve as a direct
@@ -12,10 +13,10 @@ import numpy as np
 import pytest
 import torch
 
-from deepi2p_tpu.register import noise
 from deepi2p_tpu_torch.eval.dump import save_sample_dump
 from deepi2p_tpu_torch.eval.harness import evaluate_registration
 from deepi2p_tpu_torch.register import frustum as tf
+from deepi2p_tpu_torch.register import noise
 from deepi2p_tpu_torch.register.metrics import pose_diff_np
 
 from test_frustum import H, K_np, W, _make_problem
@@ -57,7 +58,7 @@ def test_bench_config_quality_gate(rng):
 def test_bench_config_quality_gate_real_structure(rng):
     """``test_bench_config_quality_gate_real_structure``: the measured
     border-band and off-band error rates of a real dump, through the
-    JAX package's noise models, at the fixture's gate (default 4 of 6)."""
+    port's noise models, at the fixture's gate (default 4 of 6)."""
     assert os.path.isfile(FIXTURE), "tests/fixtures/error_structure.json"
     with open(FIXTURE) as f:
         fix = json.load(f)

@@ -113,7 +113,7 @@ def test_cli_resume_floors_to_the_epoch(tmp_path, capsys):
     (("--mesh-model", "4"), "A.13"),
     (("--steps-per-dispatch", "2"), "A.9"),
     (("--mesh-model", "2"), "A.13"),
-    (("--device-data",), "A.12"),
+    (("--device-data", "--mesh-model", "2"), "A.13"),
     (("--steps-per-dispatch", "4"), "A.9"),
 ])
 def test_cli_refuses_what_is_not_ported(tmp_path, flags, item):
