@@ -12,7 +12,8 @@ announced as ``phase=<name> start|done t=<seconds>``:
    without a CUDA device.  TF32 is switched off for matmuls and cuDNN, so
    every f32 comparison below is a true f32 one.
 2. ``build``: one ``nvcc -c`` per ``deepi2p_tpu_torch/csrc/*.cu``, all
-   started together, then one link.
+   started together, then one link; the native data core (``g++``)
+   beside them.
 3. ``batch``: the Oxford-shaped synthetic batch (B=32, N=20480, 384x640).
 4. ``model``: ``config.oxford(batch_size=32)`` with seeded weights, bf16
    as the config says; one forward gives the labels the solve sees.
@@ -129,7 +130,7 @@ announced as ``phase=<name> start|done t=<seconds>``:
 16. ``data``: the real-dataset path on a KITTI-layout tree written to a
     temporary directory from a seed (sequence 00: 96 frames, 09: 88; each
     60000 points x 7 channels and a 376x1241x3 uint8 image; 32 train and
-    16 val samples): the native core built (``g++``) and loaded; the
+    16 val samples): the native core loaded; the
     train loader's host samples/s at ``config.kitti(input_pt_num=8192)``
     with 1 and 8 threads; 2 + 10 bf16 train steps (B=8) from the tree
     through 8 loader threads and the pinned prefetch (ms/step and
@@ -173,14 +174,43 @@ announced as ``phase=<name> start|done t=<seconds>``:
     ``tests/test_torch_port_quality_gates.py`` on the card with labels
     from the port's ``noise.flip_border_band`` and ``flip_iid``: at least
     4 of 6 solved.
+19. ``prep``: the offline prep tools on raw files (``data/prep``), with
+    the host CPU's model and the card's name beside their times: 4 raw
+    velodyne scans (64 beams x 1875 azimuths, 120000 x 4 points) and 4
+    PNGs of 376x1241 through the KITTI prep (voxel 0.1, normals, images
+    bitwise their pixels, poses), the prepared frames cycled into an
+    88-frame sequence read by the ``KittiLoader`` and 2 bf16 train steps
+    on the card (4 kNN launches each); a raw Oxford traversal (VO, LMS
+    scans, 4 Bayer PNGs of 1280x960, a LUT) through ``build_traversal``
+    (s per image: demosaic, undistortion, JPEG), its JPEGs through the
+    ``OxfordLoader`` into ``eval.cli dump --dataset oxford`` on the card;
+    the JPEG encoder's bytes against the committed ``cv2.imencode``
+    digests (``tests/data/torch_port_jpeg_encode``) and a 1280x960
+    encode timed; ``build_dataset_info`` on a one-scene nuScenes tree.
+20. ``parallel``: two gloo ranks on the one card
+    (``parallel/dryrun.py``): the DP step of the KITTI-shaped config at
+    B=8 (4 per rank, f32) against rank 0's one-rank step at B=8 (the
+    float64 copy's gradient within 1e-8, the loss within 1e-5,
+    parameters bitwise equal across ranks), a 1x2 TP step (wide Linears
+    split, the float64 gradient within 1e-8); the sharded Oxford B=32
+    registration (16 pairs per rank) in 2-D and 6-DoF against the
+    one rank solving in chunks of a rank's pairs, with the same pair
+    generators: inits bitwise, poses and costs at the JAX dry run's
+    bounds, at its solve (8 inits, 4 iterations; 4 kNN and 1 LM launch
+    per rank) and at the main path's (64 inits, 24 iterations, stride 2;
+    4 kNN and 2 LM launches per rank); then ``train.cli`` at world size 1
+    over NCCL for 2 steps, in this process with the environment
+    ``torch.distributed.run`` sets.
 
 Then a ``kernels=`` line, one JSON line of per-kernel numbers (launches
 from the path each kernel serves: ``slice`` for kNN and the 2-D LM,
 ``solve6`` for the 6-DoF LM, ``eval`` for the 1-NN; the kNN entry also
 carries ``train_launches_per_step``, ``data_launches_per_step``,
-``device_data_launches_per_step`` and ``debug_launches``, the
-2-D LM ``data_solve_launches`` and ``oxford_solve_launches``, the 1-NN
-``depth_launches``), the card's
+``device_data_launches_per_step``, ``debug_launches``,
+``prep_launches_per_step`` and ``rank_launches`` (per rank of the
+``parallel`` registration), the 2-D LM ``data_solve_launches``,
+``oxford_solve_launches`` and ``rank_launches``, the 6-DoF LM
+``rank_launches``, the 1-NN ``depth_launches``), the card's
 ``nvidia-smi`` name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``.  A watchdog ends a hung run after
 420 s with a traceback and a nonzero exit; any failed check exits nonzero
@@ -261,17 +291,20 @@ TRAIN_NOISE_LEAF = 1e-6
 # timed over one epoch of the 32 samples cycled (no epoch restart inside a
 # window): the first DATA_WORKERS batches (all started together) untimed,
 # then DATA_RATE_BATCHES; training times DATA_STEPS steps once a step has
-# waited DATA_DRAINED_MS for its batch (or after DATA_DRAIN_MAX steps)
+# waited DATA_DRAINED_MS for its batch (or after DATA_DRAIN_MAX steps).
+# With a 32-batch 8-thread window, 16 timed steps and a drain of 24 this
+# phase took 146-160 s on some H100 hosts, and the whole smoke 351-379 s
+# of its 420 s watchdog; these windows are half as long
 DATA_TRAIN_FRAMES = 96
 DATA_VAL_FRAMES = 88
 DATA_POINTS = 60000
 DATA_DISTINCT = 8
 DATA_WORKERS = 8
-DATA_RATE_BATCHES = {1: 3, DATA_WORKERS: 4 * DATA_WORKERS}
+DATA_RATE_BATCHES = {1: 3, DATA_WORKERS: 2 * DATA_WORKERS}
 DATA_PROC_SAMPLES = 6    # per process, DATA_WORKERS processes
-DATA_STEPS = 16
+DATA_STEPS = 8
 DATA_WARMUP = 2
-DATA_DRAIN_MAX = 24
+DATA_DRAIN_MAX = 12
 DATA_DRAINED_MS = 20.0
 
 # the data phase's Oxford tree: the committed 1280x960 fixture JPEG (what
@@ -321,6 +354,45 @@ DEBUG_ITERS = 32
 DEBUG_FAST_PAIRS = 4
 DEBUG_MODULE_RTOL = 1e-4
 GATE_PAIRS = 6
+
+# the prep phase: 4 raw velodyne scans (a 64-beam ring pattern, 120000 x 4)
+# and 4 PNGs of 376x1241 through the port's KITTI prep (8 took 13.4-13.6
+# s of the smoke on an H100 host), the 4 prepared frames cycled into a
+# sequence of 88 (the loader skips 40 frames at each
+# end: 16 train samples); a raw Oxford traversal of 4 Bayer PNGs of
+# 1280x960 and a LUT through build_traversal
+PREP_SCANS = 4
+PREP_BEAMS, PREP_AZIMUTHS = 64, 1875
+PREP_SEQ_FRAMES = 88
+PREP_WORKERS = 8
+PREP_STEPS = 2
+PREP_OX_IMAGES = 4
+PREP_ENCODE_REPS = 5
+PREP_ENCODE_DIGESTS = "tests/data/torch_port_jpeg_encode"
+
+# the parallel phase: two gloo ranks on the one card
+PAR_RANKS = 2
+PAR_BATCH = 8            # the KITTI-shaped step, 4 per rank
+PAR_STEPS = 2            # the first held to one rank's, the second timed
+PAR_PAIRS = 32           # the Oxford registration, 16 per rank
+# held at the JAX dry run's bounds to one rank solving in chunks of a
+# rank's 16 pairs, at the dry run's solve (8 inits, 4 iterations: one LM
+# launch, no halving) and at the main path's (64 inits, 24 iterations,
+# stride 2): the LM kernel's plan (its warps per init) follows the
+# launch's pairs, and the sum order of another plan moved 4 of 512 pose
+# entries of a whole-batch solve by up to 3.5e-4 on an H100 at the dry
+# run's solve, and 17 of 512 by up to 0.325 at the main path's
+PAR_HELD = (8, 4, 1)
+PAR_MAIN = (64, 24, 2)
+PAR_LOSS_RTOL = 1e-5
+PAR_GRAD64_ATOL = 1e-8
+# accuracies, precision and recall: one point whose argmax rounding flips
+# moves them by 1/65536 at B=8, N=8192
+PAR_RATIO_ATOL = 1e-4
+# the running statistics are held in the float64 copy; the f32 ones are
+# printed (a channel whose mean dwarfs its spread loses most of its
+# variance's digits in f32)
+PAR_STATS64_RTOL = 1e-6
 
 
 def log(msg: str) -> None:
@@ -1946,6 +2018,20 @@ def train_phase(torch):
                 launches_per_step=launches // TRAIN_TIMED, knn_err=err)
 
 
+KITTI_K = ("7.215377e+02 0 6.095593e+02 {tx} 0 7.215377e+02 1.728540e+02 "
+           "0 0 0 1 0")
+KITTI_TR = "0 -1 0 0 0 0 -1 -0.08 1 0 0 -0.27"
+
+
+def kitti_calib(calib_dir) -> None:
+    """A KITTI-like ``calib.txt`` (P0-P3, Tr) in ``calib_dir``."""
+    calib_dir.mkdir(parents=True)
+    (calib_dir / "calib.txt").write_text("".join(
+        f"{cam}: {KITTI_K.format(tx=tx)}\n" for cam, tx in
+        (("P0", 0), ("P1", -386.1448), ("P2", 44.85728),
+         ("P3", -337.2877))) + f"Tr: {KITTI_TR}\n")
+
+
 def kitti_tree(root, seed: int = 0) -> int:
     """A KITTI-layout tree under ``root``, made from ``seed``: sequence 00
     (train) with DATA_TRAIN_FRAMES frames and 09 (val) with
@@ -1971,23 +2057,15 @@ def kitti_tree(root, seed: int = 0) -> int:
         clouds.append(np.concatenate([nwu, inten, nsn], 1).T.astype(
             np.float32))
         images.append(rng.integers(0, 256, (376, 1241, 3), dtype=np.uint8))
-    K = "7.215377e+02 0 6.095593e+02 {tx} 0 7.215377e+02 1.728540e+02 0 " \
-        "0 0 1 0"
-    tr = "0 -1 0 0 0 0 -1 -0.08 1 0 0 -0.27"
     written = 0
     for seq, n in (("00", DATA_TRAIN_FRAMES), ("09", DATA_VAL_FRAMES)):
-        calib = root / "calib" / seq
         pcdir = (root / "data_odometry_velodyne_NWU" / "sequences" / seq
                  / "voxel0.1-SNr0.6")
         imgdir = root / "data_odometry_color_npy" / "sequences" / seq
         posedir = root / "poses" / seq
-        for d in (calib, pcdir, imgdir / "image_2", imgdir / "image_3",
-                  posedir):
+        kitti_calib(root / "calib" / seq)
+        for d in (pcdir, imgdir / "image_2", imgdir / "image_3", posedir):
             d.mkdir(parents=True)
-        (calib / "calib.txt").write_text("".join(
-            f"{cam}: {K.format(tx=tx)}\n" for cam, tx in
-            (("P0", 0), ("P1", -386.1448), ("P2", 44.85728),
-             ("P3", -337.2877))) + f"Tr: {tr}\n")
         for i in range(n):
             np.save(pcdir / f"{i:06d}.npy", clouds[i % DATA_DISTINCT])
             np.save(imgdir / "image_2" / f"{i:06d}.npy",
@@ -2206,8 +2284,8 @@ def data_phase(torch, train):
         t = time.perf_counter()
         lib = native.build()
         require(native.available(), "data: the native core did not load")
-        log(f"data: native core {lib.name} built and loaded in "
-            f"{time.perf_counter() - t:.2f} s")
+        log(f"data: native core {lib.name} (built in the build phase) "
+            f"loaded in {time.perf_counter() - t:.2f} s")
 
         cfg = config.kitti(input_pt_num=TRAIN_N, node_a_num=TRAIN_NODES,
                            node_b_num=TRAIN_NODES)
@@ -2969,6 +3047,515 @@ def debug_phase(torch, cfg, raw):
     return dict(knn_launches=launches, module_err=err)
 
 
+def lidar_scan(rng, n_beams: int = PREP_BEAMS,
+               n_az: int = PREP_AZIMUTHS):
+    """A (n_beams * n_az, 4) float32 velodyne scan in NWU: rays at
+    elevations -24.9..2 deg over a full turn from 1.73 m above the road
+    hit the road, the facades 8-30 m to either side, or stop at 80 m;
+    range noise 2 cm, intensity uniform."""
+    import numpy as np
+    el = np.deg2rad(np.linspace(-24.9, 2.0, n_beams))[:, None]
+    az = (np.linspace(-np.pi, np.pi, n_az, endpoint=False)[None]
+          + rng.uniform(0, 2 * np.pi / n_az, (n_beams, 1)))
+    dx, dy = np.cos(el) * np.cos(az), np.cos(el) * np.sin(az)
+    dz = np.sin(el) * np.ones_like(az)
+    t_road = np.where(dz < -1e-3, -1.73 / np.minimum(dz, -1e-3), np.inf)
+    wall = 8 + 22 * (0.5 + 0.5 * np.sin(3 * az))
+    t_wall = np.where(np.abs(dy) > 1e-3, wall / np.maximum(np.abs(dy),
+                                                           1e-3), np.inf)
+    t = np.minimum(np.minimum(t_road, t_wall), 80.0)
+    t = t + rng.normal(0, 0.02, t.shape)
+    pts = np.stack([dx * t, dy * t, dz * t], -1).reshape(-1, 3)
+    return np.concatenate([pts, rng.uniform(0, 1, (len(pts), 1))],
+                          1).astype(np.float32)
+
+
+def prep_kitti(torch, tmp) -> dict:
+    """Raw scans and PNGs through the port's KITTI prep into a tree the
+    ``KittiLoader`` reads, then PREP_STEPS bf16 train steps on the card."""
+    import os
+    from pathlib import Path
+    import numpy as np
+    from deepi2p_tpu_torch import config
+    from deepi2p_tpu_torch.data import (BatchLoader, KittiLoader,
+                                        device_prefetch, jpeg)
+    from deepi2p_tpu_torch.data.prep import kitti_prep
+    from deepi2p_tpu_torch.ops.knn_cuda import knn_cuda
+    from deepi2p_tpu_torch.train.engine import Engine
+    from deepi2p_tpu_torch.utils.png import encode_png
+
+    rng = np.random.default_rng(0)
+    raw, root = Path(tmp) / "kitti_raw", Path(tmp) / "kitti"
+    seq = raw / "sequences" / "00"
+    (seq / "velodyne").mkdir(parents=True)
+    (seq / "image_2").mkdir()
+    picture = jpeg.decode(Path(__file__).resolve().parent / JPEG_FIXTURES
+                          / "kitti_1241x376_420_q95.jpg")
+    images = []
+    for i in range(PREP_SCANS):
+        lidar_scan(rng).tofile(seq / "velodyne" / f"{i:06d}.bin")
+        images.append(np.roll(picture, 37 * i, axis=1))
+        (seq / "image_2" / f"{i:06d}.png").write_bytes(
+            encode_png(images[-1]))
+    velo = root / "data_odometry_velodyne_NWU"
+    color = root / "data_odometry_color_npy"
+    t = time.perf_counter()
+    n = kitti_prep.prepare_kitti_velodyne(str(raw), str(velo), [0],
+                                          workers=PREP_WORKERS)
+    scan_s = time.perf_counter() - t
+    t = time.perf_counter()
+    m = kitti_prep.kitti_png_to_npy(str(raw), str(color), [0],
+                                    workers=PREP_WORKERS)
+    png_s = time.perf_counter() - t
+    require(n == m == PREP_SCANS, f"prep: {n} scans and {m} PNGs prepared")
+    pcdir = velo / "sequences" / "00" / "voxel0.1-SNr0.6"
+    imgdir = color / "sequences" / "00"
+    points = []
+    for i in range(PREP_SCANS):
+        d = np.load(pcdir / f"{i:06d}.npy")
+        points.append(d.shape[1])
+        norms = np.linalg.norm(d[4:7], axis=0)
+        require(d.shape[0] == 7 and np.isfinite(d).all()
+                and np.abs(norms - 1).max() < 1e-4 and d[6].min() >= -1e-6,
+                f"prep: frame {i} cloud {d.shape}")
+        require(np.array_equal(np.load(imgdir / "image_2" / f"{i:06d}.npy"),
+                               images[i]), f"prep: image {i} pixels")
+    # the loader's sequence: the prepared frames cycled, image_3 linked
+    (imgdir / "image_3").mkdir()
+    for i in range(PREP_SEQ_FRAMES):
+        f = f"{i:06d}.npy"
+        if i >= PREP_SCANS:
+            os.symlink(f"{i % PREP_SCANS:06d}.npy", pcdir / f)
+            os.symlink(f"{i % PREP_SCANS:06d}.npy", imgdir / "image_2" / f)
+        os.symlink(f"../image_2/{f}", imgdir / "image_3" / f)
+    poses = np.tile(np.eye(3, 4).reshape(1, 12), (PREP_SEQ_FRAMES, 1))
+    poses[:, 3] = 0.5 * np.arange(PREP_SEQ_FRAMES)
+    np.savetxt(raw / "00.txt", poses)
+    require(kitti_prep.kitti_poses_to_npz(str(raw / "00.txt"),
+                                          str(root / "poses" / "00"))
+            == PREP_SEQ_FRAMES, "prep: poses")
+    kitti_calib(root / "calib" / "00")
+    cfg = config.kitti(input_pt_num=TRAIN_N, node_a_num=TRAIN_NODES,
+                       node_b_num=TRAIN_NODES)
+    B = cfg.batch_size
+    train_ds = KittiLoader(str(root), "train", cfg)
+    require(len(train_ds) == PREP_STEPS * B,
+            f"prep: {len(train_ds)} KITTI train samples")
+    engine = Engine(cfg, steps_per_epoch=PREP_STEPS, device="cuda")
+    state = engine.init_state(seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    knn_cuda.launches = 0
+    losses = []
+    for batch in device_prefetch(BatchLoader(train_ds, B, seed=0,
+                                             num_workers=4), "cuda"):
+        state, metrics = engine.train_step(state, batch, gen)
+        losses.append(float(metrics["loss"]))
+    launches = knn_cuda.launches
+    require(len(losses) == PREP_STEPS and all(map(math.isfinite, losses)),
+            f"prep: KITTI train losses {losses}")
+    require(launches == 4 * PREP_STEPS, f"prep: {launches} kNN launches")
+    log(f"prep: KITTI: {PREP_SCANS} raw scans of {PREP_BEAMS * PREP_AZIMUTHS}"
+        f" x 4 points -> voxel 0.1 + normals (k=16, native core) with "
+        f"{PREP_WORKERS} workers: {scan_s:.3f} s, "
+        f"{scan_s / PREP_SCANS:.3f} s per frame ({min(points)}-"
+        f"{max(points)} points kept); {PREP_SCANS} PNGs of 376x1241 -> "
+        f".npy (bitwise their pixels): {png_s / PREP_SCANS:.3f} s per "
+        f"image; the prepared frames cycled into a sequence of "
+        f"{PREP_SEQ_FRAMES} -> KittiLoader ({len(train_ds)} train "
+        f"samples) -> {PREP_STEPS} bf16 train steps on the card (B={B}, "
+        f"N={TRAIN_N}): losses {' '.join(f'{x:.4f}' for x in losses)}, "
+        f"kNN launches {launches}")
+    return dict(frame_s=scan_s / PREP_SCANS, png_s=png_s / PREP_SCANS,
+                knn_per_step=launches // PREP_STEPS)
+
+
+def bayer(rgb, pattern: str = "gbrg"):
+    """The (H, W) uint8 Bayer mosaic of an RGB image."""
+    import numpy as np
+    raw = np.zeros(rgb.shape[:2], np.uint8)
+    for idx, ch in enumerate(pattern):
+        r, c = divmod(idx, 2)
+        raw[r::2, c::2] = rgb[r::2, c::2, "rgb".index(ch)]
+    return raw
+
+
+def prep_oxford(torch, tmp) -> dict:
+    """A raw Oxford traversal (VO, LMS scans, PREP_OX_IMAGES Bayer PNGs of
+    1280x960, a LUT) through ``build_traversal``; its JPEGs through the
+    ``OxfordLoader`` into ``eval.cli dump`` on the card."""
+    from pathlib import Path
+    import numpy as np
+    from deepi2p_tpu_torch.data import jpeg
+    from deepi2p_tpu_torch.data.prep import oxford_prep
+    from deepi2p_tpu_torch.eval import cli as eval_cli
+    from deepi2p_tpu_torch.eval.dump import list_dump_prefixes
+    from deepi2p_tpu_torch.ops.knn_cuda import knn_cuda
+    from deepi2p_tpu_torch.utils.png import encode_png
+
+    rng = np.random.default_rng(1)
+    us, trav = 1_000_000, "2014-05-19-13-20-57"
+    raw, lms, out = (Path(tmp) / d for d in ("ox_raw", "ox_lms", "oxford"))
+    tdir = raw / trav
+    (tdir / "vo").mkdir(parents=True)
+    (tdir / "stereo" / "centre").mkdir(parents=True)
+    ldir = lms / trav / "lms_front"
+    ldir.mkdir(parents=True)
+    cam_ts = [i * us // 10 for i in range(PREP_OX_IMAGES)]
+    (tdir / "vo" / "vo.csv").write_text(
+        "source_timestamp,destination_timestamp,x,y,z,roll,pitch,yaw\n"
+        + "".join(f"{ts},{ts - us // 10},2.5,0,0,0,0,0\n" for ts in cam_ts))
+    (tdir / "stereo" / "stereo.timestamps").write_text(
+        "".join(f"{ts} 1\n" for ts in cam_ts))
+    picture = jpeg.decode(Path(__file__).resolve().parent / JPEG_FIXTURES
+                          / OXFORD_JPEG)
+    for i, ts in enumerate(cam_ts):
+        (tdir / "stereo" / "centre" / f"{ts}.png").write_bytes(encode_png(
+            bayer(np.roll(picture, 53 * i, axis=1))))
+    lms_ts = [i * us // 50 for i in range(5 * PREP_OX_IMAGES)]
+    (lms / trav / "lms_front.timestamps").write_text(
+        "".join(f"{ts} 1\n" for ts in lms_ts))
+    for ts in lms_ts:      # 541 beams of a 2-D scanner, x toward the road
+        ang = np.linspace(-np.pi / 2, np.pi / 2, 541)
+        r = rng.uniform(2, 20, 541)
+        np.stack([r * np.cos(ang) - 1.5, r * np.sin(ang),
+                  rng.uniform(0, 255, 541)], 1).tofile(ldir / f"{ts}.bin")
+    H, W = picture.shape[:2]
+    y, x = np.mgrid[0:H, 0:W].astype(np.float64)
+    cx, cy = (W - 1) / 2, (H - 1) / 2
+    r2 = ((x - cx) ** 2 + (y - cy) ** 2) / (cx * cx + cy * cy)
+    lut = raw / "stereo_narrow_left_distortion_lut.bin"
+    np.stack([(cx + (x - cx) * (1 + 0.1 * r2)).ravel(),
+              (cy + (y - cy) * (1 + 0.1 * r2)).ravel()]).tofile(lut)
+    ext = raw / "extrinsics"
+    ext.mkdir()
+    for name in ("stereo", "lms_front"):
+        (ext / f"{name}.txt").write_text("0 0 0 0 0 0\n")
+    sdk = oxford_prep.sdk_from_extrinsics(str(ext), lut_path=str(lut))
+    png = tdir / "stereo" / "centre" / f"{cam_ts[0]}.png"
+    sdk.load_image(str(png))            # the LUT parsed and cached
+    t = time.perf_counter()
+    decoded = sdk.load_image(str(png))
+    load_s = time.perf_counter() - t
+    t = time.perf_counter()
+    summary = oxford_prep.build_traversal(
+        trav, str(lms), str(raw), str(out), sdk, pc_sample_distance=2.0,
+        accumulation_distance=2.0, ignore_first_n_second=-1.0)
+    build_s = time.perf_counter() - t
+    require(summary == {"n_pc": PREP_OX_IMAGES - 2,
+                        "n_img": PREP_OX_IMAGES},
+            f"prep: build_traversal {summary}")
+    jpgs = sorted((out / trav / "stereo" / "centre").iterdir())
+    first = jpeg.decode(jpgs[0])
+    require(first.shape == (H, W, 3) and np.abs(
+        first.astype(int) - decoded.astype(int)).mean() < 3,
+        f"prep: the written JPEG decodes to {first.shape}")
+    for split in ("train", "val"):
+        (out / f"{split}.txt").write_text(f"{trav}\n")
+    knn_cuda.launches = 0
+    with torch.no_grad():
+        eval_cli.main(["dump", "--dataset", "oxford", "--dataroot",
+                       str(out), "--out", f"{tmp}/ox_dump",
+                       "--batch-size", str(summary["n_pc"])])
+    torch.cuda.synchronize()
+    n = len(list_dump_prefixes(f"{tmp}/ox_dump"))
+    require(n == summary["n_pc"] and knn_cuda.launches == 4,
+            f"prep: Oxford dump of {n} pairs, {knn_cuda.launches} kNN")
+    log(f"prep: Oxford: build_traversal of {PREP_OX_IMAGES} Bayer PNGs of "
+        f"{W}x{H} (demosaic + LUT undistortion + JPEG) and "
+        f"{len(lms_ts)} LMS scans: {build_s:.3f} s ({summary}); one image "
+        f"demosaiced and undistorted {load_s:.3f} s; the JPEGs through the "
+        f"OxfordLoader into eval.cli dump on the card: {n} pairs, kNN "
+        f"launches {knn_cuda.launches}")
+    return dict(image_s=build_s / PREP_OX_IMAGES, load_s=load_s)
+
+
+def prep_encoder() -> dict:
+    """The port's JPEG encoder against the committed cv2 digests; a
+    1280x960 encode timed."""
+    import importlib.util
+    from pathlib import Path
+    from deepi2p_tpu_torch.data import jpeg
+
+    path = (Path(__file__).resolve().parent / PREP_ENCODE_DIGESTS
+            / "make_digests.py")
+    spec = importlib.util.spec_from_file_location("make_digests", path)
+    cases = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cases)
+    want = cases.load_digests()
+    for case in cases.CASES:
+        require(cases.digest(jpeg.encode_jpeg(cases.image(case)))
+                == want[case], f"prep: encoder bytes of {case} differ from "
+                               f"cv2's (OpenCV {want['opencv']})")
+    img = cases.image("noise_960x1280")
+    t = time.perf_counter()
+    for _ in range(PREP_ENCODE_REPS):
+        jpeg.encode_jpeg(img)
+    ms = (time.perf_counter() - t) / PREP_ENCODE_REPS * 1e3
+    log(f"prep: JPEG encoder: {len(cases.CASES)} images (1x1 to 960x1280, "
+        f"flat, gradient, noise) byte for byte the committed digests of "
+        f"cv2.imencode (OpenCV {want['opencv']}); a 1280x960 noise image "
+        f"{ms:.3f} ms per encode (mean of {PREP_ENCODE_REPS})")
+    return dict(encode_ms=ms)
+
+
+def prep_nuscenes(tmp) -> int:
+    """``build_dataset_info`` on a one-scene nuScenes tree (the tables of
+    ``tests/torch_port_data_trees.py::mini_nuscenes``)."""
+    import math as m
+    from pathlib import Path
+    from deepi2p_tpu_torch.data.nuscenes import CAMERA_NAMES
+    from deepi2p_tpu_torch.data.nuscenes_tables import NuScenesTables
+    from deepi2p_tpu_torch.data.prep.nuscenes_prep import build_dataset_info
+
+    def quat(a):
+        return [m.cos(a / 2), 0.0, 0.0, m.sin(a / 2)]
+
+    root, version, n = Path(tmp) / "nusc", "v1.0-trainval", 8
+    (root / version).mkdir(parents=True)
+    tables = {"sensor": [], "calibrated_sensor": [], "ego_pose": [],
+              "sample_data": []}
+    for ch in ("LIDAR_TOP", *CAMERA_NAMES):
+        tables["sensor"].append({"token": f"sen_{ch}", "channel": ch,
+                                 "modality": "lidar" if ch == "LIDAR_TOP"
+                                 else "camera"})
+        tables["calibrated_sensor"].append({
+            "token": f"cs_{ch}", "sensor_token": f"sen_{ch}",
+            "rotation": quat(0.3), "translation": [0.9, 0.0, 1.8],
+            "camera_intrinsic": [] if ch == "LIDAR_TOP" else
+            [[620.0, 0.0, 320.0], [0.0, 620.0, 176.0], [0.0, 0.0, 1.0]]})
+    for i in range(n):
+        tok = f"lidar_{i:03d}"
+        tables["ego_pose"].append({"token": f"ep_{tok}",
+                                   "rotation": quat(0.02 * i),
+                                   "translation": [2.0 * i, 0.1, 0.0]})
+        tables["sample_data"].append({
+            "token": tok, "sample_token": "samp_0",
+            "filename": f"samples/{tok}.pcd.bin",
+            "ego_pose_token": f"ep_{tok}",
+            "calibrated_sensor_token": "cs_LIDAR_TOP",
+            "is_key_frame": i == 0,
+            "prev": f"lidar_{i - 1:03d}" if i else "",
+            "next": f"lidar_{i + 1:03d}" if i < n - 1 else ""})
+    for ch in CAMERA_NAMES:
+        tables["ego_pose"].append({"token": f"ep_cam_{ch}",
+                                   "rotation": quat(0.05),
+                                   "translation": [1.0, 0.0, 0.0]})
+        tables["sample_data"].append({
+            "token": f"cam_{ch}", "sample_token": "samp_0",
+            "filename": "samples/cam.jpg", "ego_pose_token": f"ep_cam_{ch}",
+            "calibrated_sensor_token": f"cs_{ch}", "is_key_frame": True,
+            "prev": "", "next": ""})
+    tables["sample"] = [{"token": "samp_0", "timestamp": 0, "prev": "",
+                         "next": "", "scene_token": "scene_0"}]
+    tables["scene"] = [{"token": "scene_0", "log_token": "log_0",
+                        "nbr_samples": 1, "first_sample_token": "samp_0",
+                        "last_sample_token": "samp_0", "name": "scene-0001",
+                        "description": "Sunny day, parked cars"}]
+    for name, records in tables.items():
+        (root / version / f"{name}.json").write_text(json.dumps(records))
+    info = build_dataset_info(NuScenesTables(version, str(root)),
+                              max_translation=1e9, frame_skip=2,
+                              out_path=str(root / "dataset_info.list"))
+    require([tok for tok, _ in info] == [f"lidar_{i:03d}" for i in
+                                         range(0, n, 2)]
+            and set(info[0][1]) == set(CAMERA_NAMES),
+            f"prep: nuScenes dataset_info {info[:1]}")
+    log(f"prep: nuScenes build_dataset_info on a one-scene tree: "
+        f"{len(info)} LiDAR frames, each paired with all "
+        f"{len(CAMERA_NAMES)} cameras")
+    return len(info)
+
+
+def prep_phase(torch) -> dict:
+    """The offline prep tools on raw files, their outputs into the
+    loaders and onto the card."""
+    with tempfile.TemporaryDirectory(prefix="deepi2p_prep_") as tmp:
+        kitti = prep_kitti(torch, tmp)
+        torch.cuda.empty_cache()
+        oxford = prep_oxford(torch, tmp)
+        enc = prep_encoder()
+        prep_nuscenes(tmp)
+    log(f"prep: host {host_cpu()}; card {nvidia_smi()}")
+    return dict(**kitti, **oxford, **enc)
+
+
+def host_cpu() -> str:
+    """The host CPU as ``lscpu`` names it (vendor, model name, BIOS model
+    name, family/model) and its logical CPU count."""
+    import os
+    fields = ("Vendor ID", "Model name", "BIOS Model name", "CPU family",
+              "Model")
+    found = {}
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                             timeout=30).stdout
+        for line in out.splitlines():
+            key, _, value = line.partition(":")
+            if key.strip() in fields and key.strip() not in found:
+                found[key.strip()] = value.strip()
+    except (OSError, subprocess.SubprocessError):
+        pass
+    desc = "; ".join(f"{k} {found[k]}" for k in fields if found.get(k))
+    return f"{desc or 'lscpu unavailable'}; {os.cpu_count()} logical CPUs"
+
+
+def parallel_phase(torch) -> dict:
+    """Two gloo ranks on the one card (``parallel/dryrun.py``): the DP and
+    the 1x2 TP train step held to one rank's, the sharded Oxford
+    registration held to the one-rank solve; then ``train.cli`` at world
+    size 1 over NCCL (:func:`nccl_train_cli`)."""
+    import numpy as np
+    from deepi2p_tpu_torch import config
+    from deepi2p_tpu_torch.data.synthetic import synthetic_batch
+    from deepi2p_tpu_torch.parallel import dryrun
+    from deepi2p_tpu_torch.parallel.mesh import make_mesh
+
+    kcfg = dict(input_pt_num=TRAIN_N, node_a_num=TRAIN_NODES,
+                node_b_num=TRAIN_NODES, synthetic_scene="street",
+                batch_size=PAR_BATCH, compute_dtype="float32")
+    with tempfile.TemporaryDirectory(prefix="deepi2p_ranks_") as tmp:
+        train = f"{tmp}/train.npz"
+        np.savez(train, **synthetic_batch(config.kitti(**kcfg), seed=3))
+        reg = f"{tmp}/reg.npz"
+        np.savez(reg, **synthetic_batch(config.oxford(), PAR_PAIRS, seed=0))
+        step = {"batch": train, "preset": "kitti", "cfg": kcfg,
+                "steps": PAR_STEPS}
+        register = {"batch": reg, "preset": "oxford",
+                    "forward_chunk": PAR_PAIRS // PAR_RANKS}
+        solves = {key: dict(register, n_inits=n, max_iter=it,
+                            solver_stride=st)
+                  for key, (n, it, st) in (("register", PAR_HELD),
+                                           ("register_main", PAR_MAIN))}
+        job = {"train": dict(step, n_model=1),
+               "train_tp": dict(step, n_model=2, steps=1), **solves}
+        t = time.perf_counter()
+        results = dryrun.launch(PAR_RANKS, job, tmp, device="cuda",
+                                timeout_s=300)
+        wall = time.perf_counter() - t
+        require(results[0]["backend"] == "gloo"
+                and all(r["device"] == "cuda:0" for r in results),
+                f"parallel: ranks on {[r['device'] for r in results]}")
+        kw = dict(loss_rtol=PAR_LOSS_RTOL, stats_rtol=None,
+                  stats64_rtol=PAR_STATS64_RTOL, ratio_atol=PAR_RATIO_ATOL)
+        try:
+            dp = dryrun.check_train(results, **kw)
+            tp = dryrun.check_train(results, key="train_tp", **kw)
+        except AssertionError as e:
+            raise CheckFailed(f"parallel: train step: {e}") from e
+        require(dp["grad64_err"] <= PAR_GRAD64_ATOL
+                and tp["grad64_err"] <= PAR_GRAD64_ATOL and tp["n_split"] > 0
+                and results[0]["train_tp"]["mesh"] == {"data": 1, "model": 2},
+                f"parallel: DP {dp}, TP {tp}")
+        log(f"parallel: {PAR_RANKS} gloo ranks on one card "
+            f"({wall:.1f} s from spawn to results): DP step of the "
+            f"KITTI-shaped config (B={PAR_BATCH}, {PAR_BATCH // PAR_RANKS} "
+            f"per rank, N={TRAIN_N}, f32): loss {dp['loss']:.6f} against "
+            f"one rank's {dp['loss_ref']:.6f}, float64 gradient within "
+            f"{dp['grad64_err']:.3e} of one rank's, parameters bitwise "
+            f"equal across ranks, statistics within {dp['stats64_err']:.2e} "
+            f"in the float64 copy ({dp['stats_err']:.2e} in f32); "
+            f"{dp['step_s'] * 1e3:.3f} "
+            f"ms per step on each rank (least of {PAR_STEPS}) against "
+            f"{dp['step_s_ref'] * 1e3:.3f} ms for one rank at B={PAR_BATCH}"
+            f"; 1x2 TP step: {tp['n_split']} split tensors, loss "
+            f"{tp['loss']:.6f}, float64 gradient within "
+            f"{tp['grad64_err']:.3e}, {tp['step_s'] * 1e3:.3f} ms")
+        mesh1 = make_mesh(1, device="cuda")
+        try:
+            held, main = (dryrun.check_register(
+                results, dryrun.register_job(mesh1, config.oxford(), dict(
+                    solves[key], solve_chunk=PAR_PAIRS // PAR_RANKS)),
+                key=key) for key in ("register", "register_main"))
+        except AssertionError as e:
+            raise CheckFailed(f"parallel: registration: {e}") from e
+        for name, read, lm in (("held", held, 1), ("main", main, 2)):
+            for mode in ("2d", "6dof"):
+                r = read[mode]
+                require(r["finite"] and all(k == 4 for k in r["knn_launches"])
+                        and all(k == lm for k in r["lm_launches"]),
+                        f"parallel: {name} {mode} solve {r}")
+        log(f"parallel: sharded Oxford registration (B={PAR_PAIRS}, "
+            f"{PAR_PAIRS // PAR_RANKS} pairs per rank, the forward in "
+            f"chunks of {PAR_PAIRS // PAR_RANKS} on both sides): inits "
+            f"bitwise one rank's; poses and costs at the JAX dry run's "
+            f"bounds against one rank solving in chunks of "
+            f"{PAR_PAIRS // PAR_RANKS}"
+            + "".join(f"; at {n} inits, {it} iterations, stride {st} ("
+                      f"{name}): " + ", ".join(
+                          f"{m} {r[m]['s']:.3f} s on rank 0 against "
+                          f"{r[m]['s_ref']:.3f} s for one rank, "
+                          f"{r[m]['bitwise']} of {PAR_PAIRS} poses bitwise"
+                          for m in ("2d", "6dof"))
+                      for name, r, (n, it, st) in (
+                          ("the JAX dry run's", held, PAR_HELD),
+                          ("the main path's", main, PAR_MAIN)))
+            + f"; launches per rank: kNN {main['2d']['knn_launches']}, 2-D "
+            f"LM {main['2d']['lm_launches']}, 6-DoF LM "
+            f"{main['6dof']['lm_launches']}")
+        cli_s, out = nccl_train_cli(torch, tmp)
+        log(f"parallel: train.cli in this process with the environment of "
+            f"torch.distributed.run at world size 1 (NCCL), 2 bf16 steps of "
+            f"--device-data at the KITTI shape: {cli_s:.1f} s wall, "
+            f"checkpoint written; it said: {out.strip().splitlines()[0]}")
+    return dict(dp=dp, tp=tp, register=main)
+
+
+def nccl_train_cli(torch, tmp):
+    """``train.cli --device-data`` for 2 steps in this process, with the
+    environment ``torch.distributed.run`` gives a world of one rank: it
+    joins an NCCL process group of one on this card and leaves it at the
+    end.  Returns (seconds, what it printed)."""
+    import contextlib
+    import io
+    import os
+    import socket
+    import torch.distributed as dist
+    from deepi2p_tpu_torch.train import cli as train_cli
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+           "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+    saved = {k: os.environ.get(k) for k in env}
+    backends = []
+    init = dist.init_process_group
+
+    def recorded(backend=None, *a, **kw):
+        backends.append(backend)
+        return init(backend, *a, **kw)
+
+    buf = io.StringIO()
+    os.environ.update(env)
+    dist.init_process_group = recorded
+    t = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            train_cli.main([
+                "--dataset", "synthetic", "--device-data",
+                "--synthetic-preset", "kitti", "--synthetic-scene", "street",
+                "--points", str(TRAIN_N), "--nodes", str(TRAIN_NODES),
+                "--synthetic-len", "16", "--val-len", "8", "--epochs", "1",
+                "--log-every", "1", "--checkpoints-dir", f"{tmp}/ck",
+                "--log-dir", f"{tmp}/log"])
+        torch.cuda.synchronize()
+    finally:
+        dist.init_process_group = init
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    cli_s = time.perf_counter() - t
+    out = buf.getvalue()
+    require(backends == ["nccl"] and not dist.is_initialized()
+            and "over 1 ranks" in out and "epoch 0 step 2:" in out
+            and os.path.isfile(f"{tmp}/ck/latest.npz"),
+            f"parallel: train.cli at world size 1 (backends {backends}): "
+            f"{out[-800:]}")
+    return cli_s, out
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     import torch
@@ -2990,10 +3577,18 @@ def main() -> int:
     from deepi2p_tpu_torch.models import build_detector
 
     with phase("build"):
+        # the data phase's native core (g++) builds beside the kernels
+        from concurrent.futures import ThreadPoolExecutor
+        from deepi2p_tpu_torch.data import native
         t = time.perf_counter()
-        _build.build(verbose=True)
-        _build.load_library()
-        log(f"build: {time.perf_counter() - t:.1f} s")
+        with ThreadPoolExecutor(1) as ex:
+            core = ex.submit(native.build)
+            _build.build(verbose=True)
+            _build.load_library()
+            kernels_s = time.perf_counter() - t
+            core.result()
+        log(f"build: {kernels_s:.1f} s; the native data core built beside "
+            f"them, {time.perf_counter() - t:.1f} s in all")
 
     cfg = config.oxford(batch_size=BATCH)
     with phase("batch"):
@@ -3036,6 +3631,10 @@ def main() -> int:
         device_data = device_data_phase(torch, train)
     with torch.no_grad(), phase("debug"):
         debug = debug_phase(torch, eval_cfg, eval_raw)
+    with torch.enable_grad(), phase("prep"):
+        prep = prep_phase(torch)
+    with phase("parallel"):
+        par = parallel_phase(torch)
 
     lm_src = "deepi2p_tpu_torch/csrc/frustum_lm.cu"
     kernels = [
@@ -3046,16 +3645,21 @@ def main() -> int:
              data_launches_per_step=data["knn_per_step"],
              device_data_launches_per_step=device_data["per_step"],
              debug_launches=debug["knn_launches"],
+             prep_launches_per_step=prep["knn_per_step"],
+             rank_launches=par["register"]["2d"]["knn_launches"],
              **{**knn_row, "max_abs_err": max(knn_row["max_abs_err"],
                                               train["knn_err"])}),
         dict(name="lm_p4", route="cuda", source=lm_src,
              replaces="deepi2p_tpu/register/frustum_pallas.py:336",
              launches=launches["lm_solve_p4"],
              data_solve_launches=data["lm"],
-             oxford_solve_launches=data["oxford"]["lm"], **lm_row),
+             oxford_solve_launches=data["oxford"]["lm"],
+             rank_launches=par["register"]["2d"]["lm_launches"], **lm_row),
         dict(name="lm_p6", route="cuda", source=lm_src,
              replaces="deepi2p_tpu/register/frustum_pallas.py:336",
-             launches=launches6["lm_p6"], **lm6_row),
+             launches=launches6["lm_p6"],
+             rank_launches=par["register"]["6dof"]["lm_launches"],
+             **lm6_row),
         dict(name="nn1", route="cuda", source="deepi2p_tpu_torch/csrc/nn1.cu",
              replaces="deepi2p_tpu/ops/knn_pallas.py:141",
              launches=launches_eval["nn1"], depth_launches=depth["launches"],

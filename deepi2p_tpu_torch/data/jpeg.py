@@ -16,6 +16,11 @@ PNG through ``zlib`` and the native row unfilter.
   ``zlib`` inflates the image data, and ``jpeg.cpp``'s ``png_unfilter``
   undoes the row filters (a byte-serial loop over each row).
 * :func:`read_image` picks by the file's signature.
+* :func:`encode_jpeg` and :func:`write_jpeg` bind
+  ``native/jpeg_encode.cpp``, a baseline encoder that repeats
+  libjpeg-turbo's arithmetic at ``cv2.imwrite``'s defaults (quality 95,
+  4:2:0, standard Huffman tables), so that its bytes are those of
+  ``cv2.imwrite(path, rgb[..., ::-1])``.
 
 The decode releases the GIL (ctypes), so loader threads decode in
 parallel.
@@ -98,14 +103,15 @@ def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
     return out
 
 
-def read_png(src: Source) -> np.ndarray:
+def read_png(src: Source, unchanged: bool = False) -> np.ndarray:
     """An 8-bit non-interlaced PNG (bytes or a path) as (H, W, 3) uint8
-    RGB."""
+    RGB; with ``unchanged``, a gray PNG as (H, W) uint8, as
+    ``cv2.IMREAD_UNCHANGED`` gives it (other kinds as without)."""
     data, name = _read(src)
-    return _png(data, name)
+    return _png(data, name, unchanged)
 
 
-def _png(data: bytes, name: str) -> np.ndarray:
+def _png(data: bytes, name: str, unchanged: bool = False) -> np.ndarray:
     if not data.startswith(PNG_SIGNATURE):
         raise ValueError(f"{name}: not a PNG file")
     pos, ihdr, idat = len(PNG_SIGNATURE), None, []
@@ -135,6 +141,8 @@ def _png(data: bytes, name: str) -> np.ndarray:
     except (zlib.error, ValueError) as e:
         raise ValueError(f"{name}: corrupt PNG data ({e})") from e
     pix = pix.reshape(h, w, ch)
+    if unchanged and ch == 1:
+        return pix[..., 0]
     if ch <= 2:
         return np.repeat(pix[..., :1], 3, axis=2)
     return np.ascontiguousarray(pix[..., :3])
@@ -151,3 +159,34 @@ def read_image(src: Source, scale_denom: int = 1) -> np.ndarray:
     if not data.startswith(JPEG_SIGNATURE):
         raise ValueError(f"{name}: neither a JPEG nor a PNG file")
     return _decode(data, name, scale_denom)
+
+
+# --------------------------------------------------------------------------
+# JPEG encoding
+# --------------------------------------------------------------------------
+
+def encode_jpeg(rgb: np.ndarray) -> bytes:
+    """(H, W, 3) uint8 RGB as the bytes of ``cv2.imencode(".jpg", bgr)``
+    at OpenCV's defaults."""
+    rgb = np.ascontiguousarray(rgb)
+    if rgb.dtype != np.uint8 or rgb.ndim != 3 or rgb.shape[2] != 3:
+        raise ValueError(f"encode_jpeg: expected (H, W, 3) uint8, got "
+                         f"{rgb.shape} {rgb.dtype}")
+    h, w = rgb.shape[:2]
+    lib = native.load_library()
+    out = np.empty(lib.jpeg_encode_bound(h, w), np.uint8)
+    err = ctypes.create_string_buffer(_ERR_LEN)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    n = lib.jpeg_encode(rgb.ctypes.data_as(u8p), h, w,
+                        out.ctypes.data_as(u8p), out.size, err, _ERR_LEN)
+    if n < 0:
+        raise ValueError(f"encode_jpeg: {err.value.decode()}")
+    return out[:n].tobytes()
+
+
+def write_jpeg(path: Union[str, os.PathLike], rgb: np.ndarray) -> None:
+    """Write (H, W, 3) uint8 RGB as a JPEG, the bytes of
+    ``cv2.imwrite(path, rgb[..., ::-1])``."""
+    data = encode_jpeg(rgb)
+    with open(path, "wb") as f:
+        f.write(data)

@@ -5,14 +5,16 @@
 dataset object, collate, and leave the batch in a bounded ready buffer
 from which the consumer takes batches in order.  With ``shuffle`` the
 order is ``np.random.default_rng(seed).shuffle`` of the indices, as
-there, so one seed gives one order in both packages.  The last partial
-batch is dropped, and a sample that fails to load reaches the consumer as
-its exception, as the JAX loader's defaults have it.  Threads, not
-processes: the loaders' numpy and file reads release the interpreter
-lock for most of a sample, and every worker shares the dataset (a
-dataset whose samples draw from one generator, as the real loaders' do,
-then sees its draws in the order the threads reach it; one worker keeps
-the order of the indices).
+there, so one seed gives one order in both packages.  With ``shard=(r,
+n)`` the loader reads block ``r`` of ``n`` equal blocks of each batch of
+that order, a rank's share of a batch split over ``n`` ranks.  The last
+partial batch is dropped, and a sample that fails to load reaches the
+consumer as its exception, as the JAX loader's defaults have it.
+Threads, not processes: the loaders' numpy and file reads release the
+interpreter lock for most of a sample, and every worker shares the
+dataset (a dataset whose samples draw from one generator, as the real
+loaders' do, then sees its draws in the order the threads reach it; one
+worker keeps the order of the indices).
 
 :func:`device_prefetch` keeps ``size`` batches on their way to the card:
 a helper thread takes each collated batch from the loader, pins it and
@@ -37,9 +39,13 @@ class BatchLoader:
     """Threaded sample -> batch pipeline over any indexable dataset."""
 
     def __init__(self, dataset, batch_size: int, *, shuffle: bool = True,
-                 num_workers: int = 1, seed: int = 0, prefetch: int = 4):
+                 num_workers: int = 1, seed: int = 0, prefetch: int = 4,
+                 shard: tuple = (0, 1)):
         if batch_size < 1:
             raise ValueError(f"batch_size {batch_size} < 1")
+        if batch_size % shard[1] or not 0 <= shard[0] < shard[1]:
+            raise ValueError(f"shard {shard} of a batch of {batch_size}")
+        self.shard = shard
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -55,7 +61,10 @@ class BatchLoader:
         if self.shuffle:
             np.random.default_rng(self.seed).shuffle(order)
         bs = self.batch_size
-        batches = [order[i:i + bs] for i in range(0, len(self) * bs, bs)]
+        r, n = self.shard
+        part = bs // n
+        batches = [order[i + r * part:i + (r + 1) * part]
+                   for i in range(0, len(self) * bs, bs)]
 
         tasks: queue.Queue = queue.Queue()
         for task in enumerate(batches):

@@ -1,13 +1,14 @@
 """The port's native host core (``deepi2p_tpu_torch/native/``) through
 ctypes.
 
-One library from two C++ sources of the port's own:
+One library from three C++ sources of the port's own:
 
 * ``deepi2p_data.cpp``, the port's copy of the JAX package's data core
   (``native/deepi2p_data.cpp``): farthest-point sampling, voxel
   downsampling and brute-force kNN in threaded C++;
-* ``jpeg.cpp``, the baseline JPEG decoder and the PNG row unfilter that
-  ``data/jpeg.py`` binds.
+* ``jpeg.cpp``, the baseline JPEG decoder and the PNG row unfilter, and
+  ``jpeg_encode.cpp``, the baseline JPEG encoder, which ``data/jpeg.py``
+  binds.
 
 It is built at first use: ``g++`` with the flags of ``native/Makefile``
 compiles both sources into ``deepi2p_tpu_torch/build/`` (never into
@@ -34,7 +35,8 @@ import numpy as np
 from .._build import BUILD_DIR, PKG_DIR
 
 SOURCES = (PKG_DIR / "native" / "deepi2p_data.cpp",
-           PKG_DIR / "native" / "jpeg.cpp")
+           PKG_DIR / "native" / "jpeg.cpp",
+           PKG_DIR / "native" / "jpeg_encode.cpp")
 # native/Makefile's CXXFLAGS, and -shared
 CXX_FLAGS = ["-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall",
              "-pthread", "-shared"]
@@ -110,6 +112,10 @@ def _typed(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.png_unfilter.argtypes = [u8p, i64, i64, ctypes.c_int, u8p, cp,
                                  ctypes.c_int]
     lib.png_unfilter.restype = ctypes.c_int
+    lib.jpeg_encode_bound.argtypes = [i64, i64]
+    lib.jpeg_encode_bound.restype = i64
+    lib.jpeg_encode.argtypes = [u8p, i64, i64, u8p, i64, cp, ctypes.c_int]
+    lib.jpeg_encode.restype = i64
     return lib
 
 

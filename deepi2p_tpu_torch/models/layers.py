@@ -16,6 +16,13 @@ Train mode (``module.train()``) follows flax: batch norm normalises with
 the batch's statistics and updates its running ones, and dropout draws
 its mask from the ``torch.Generator`` the caller passes to the forward.
 In eval mode batch norm uses the running statistics and dropout is off.
+
+Over several ranks (``parallel/mesh.py::shard_state`` sets these; a
+single process leaves them ``None``): ``Norm.reduce`` sums a batch norm's
+per-channel sums over the ranks of the batch, ``PNLayer.batch_rows``
+makes dropout draw the whole batch's mask and keep the rank's rows, and
+``PNLayer.tp`` computes a Linear whose output channels are split over
+ranks and gathers them.
 """
 from __future__ import annotations
 
@@ -61,6 +68,9 @@ class Norm(nn.Module):
             raise ValueError(f"unknown normalization {kind!r}")
         self.kind, self.eps, self.channel_axis = kind, eps, channel_axis
         self.decay = 1.0 - momentum
+        # (sum, sum of squares, count) -> the same summed over the ranks
+        # that split the batch
+        self.reduce = None
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         if kind == "batch":
@@ -78,9 +88,17 @@ class Norm(nn.Module):
         else:
             first = 0 if self.kind == "batch" else 1
             axes = [a for a in range(first, x.dim()) if a != ch]
-            mean = xf.mean(dim=axes, keepdim=True)
-            var = torch.clamp((xf * xf).mean(dim=axes, keepdim=True)
-                              - mean * mean, min=0.0)
+            if self.kind == "batch" and self.reduce is not None:
+                s, ss, n = self.reduce(
+                    xf.sum(dim=axes, keepdim=True),
+                    (xf * xf).sum(dim=axes, keepdim=True),
+                    x.numel() // x.shape[ch])
+                mean = s / n
+                var = torch.clamp(ss / n - mean * mean, min=0.0)
+            else:
+                mean = xf.mean(dim=axes, keepdim=True)
+                var = torch.clamp((xf * xf).mean(dim=axes, keepdim=True)
+                                  - mean * mean, min=0.0)
             if self.kind == "batch":
                 with torch.no_grad():
                     d = self.decay
@@ -94,17 +112,26 @@ class Norm(nn.Module):
 
 
 def dropout(x: torch.Tensor, rate: float,
-            generator: torch.Generator | None) -> torch.Tensor:
+            generator: torch.Generator | None,
+            rows: tuple[int, int] | None = None) -> torch.Tensor:
     """flax's ``Dropout`` in train mode: keep where a uniform draw is below
     ``1 - rate`` (``random.bernoulli``), scale the kept values by
     ``1 / (1 - rate)`` in ``x``'s dtype, zero the rest.  The uniforms are
     drawn on ``generator``'s device and moved to ``x``'s, so one seed of a
-    CPU generator gives one mask on every device."""
+    CPU generator gives one mask on every device.  ``rows = (r, n)``: ``x``
+    is part ``r`` of ``n`` equal row blocks of a batch; the mask of the
+    whole batch is drawn and the part's rows kept."""
     if generator is None:
         raise ValueError("dropout in train mode needs a torch.Generator "
                          "(pass generator= to the forward)")
     keep_prob = 1.0 - rate
-    u = torch.rand(x.shape, generator=generator, device=generator.device)
+    if rows is None:
+        u = torch.rand(x.shape, generator=generator, device=generator.device)
+    else:
+        r, n = rows
+        b = x.shape[0]
+        u = torch.rand((n * b, *x.shape[1:]), generator=generator,
+                       device=generator.device)[r * b:(r + 1) * b]
     keep = (u < keep_prob).to(x.device)
     return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
                                                          device=x.device))
@@ -123,16 +150,24 @@ class PNLayer(nn.Module):
         self.act = ACTIVATIONS[activation] if norm_act else None
         self.dtype = dtype
         self.dropout_rate = dropout
+        # the rank's block of the batch, (r, n), for dropout
+        self.batch_rows = None
+        # a split Linear: .enter(x) before it, .gather(y) after it
+        self.tp = None
 
     def forward(self, x: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:
         dt = self.dtype
-        x = F.linear(x.to(dt), self.conv.weight.to(dt),
-                     self.conv.bias.to(dt))
+        x = x.to(dt)
+        if self.tp is not None:
+            x = self.tp.enter(x)
+        x = F.linear(x, self.conv.weight.to(dt), self.conv.bias.to(dt))
+        if self.tp is not None:
+            x = self.tp.gather(x)
         if self.norm is not None:
             x = self.act(self.norm(x))
         if self.training and 0.0 < self.dropout_rate < 1.0:
-            x = dropout(x, self.dropout_rate, generator)
+            x = dropout(x, self.dropout_rate, generator, self.batch_rows)
         return x
 
 

@@ -130,6 +130,19 @@ def sample_inits(generator: torch.Generator, ang: torch.Tensor, n_inits: int,
     return torch.stack([z, ry, z, z, z, tz], dim=-1)
 
 
+def sample_inits_per_pair(generators, ang: torch.Tensor, n_inits: int,
+                          **kw) -> torch.Tensor:
+    """:func:`sample_inits` with one generator per pair: pair ``i`` draws
+    from ``generators[i]`` alone, so its inits do not depend on which
+    other pairs share its batch (the JAX package's per-pair keys,
+    ``parallel/registration.py:27-29``).  ang (B,) -> (B, n_inits, P)."""
+    if len(generators) != ang.shape[0]:
+        raise ValueError(f"{len(generators)} generators for "
+                         f"{ang.shape[0]} pairs")
+    return torch.cat([sample_inits(g, ang[i:i + 1], n_inits, **kw)
+                      for i, g in enumerate(generators)], dim=0)
+
+
 def _residuals_t(theta, pts, labels, valid, K, H: int, W: int, is_2d: bool,
                  edge_margin_px: float = 0.0):
     """Blockwise residuals (B, I, 3, N) of the reference cost, the JAX

@@ -32,14 +32,30 @@ no loader thread, pinned buffer or host copy.  Train batch ``i`` of epoch
 ``max(len(val) // batch_size, 1)`` batches every epoch, seeded with
 ``(seed + 31337, i)``.
 
+Several ranks: under ``torch.distributed.run`` (``RANK``, ``WORLD_SIZE``,
+``LOCAL_RANK`` in the environment) each rank joins one process group
+(NCCL on cards, gloo with ``--device cpu``; a rank's card is
+``cuda:LOCAL_RANK``, which must exist) and trains on a (data, model)
+layout of ranks (:mod:`..parallel.mesh`), ``--mesh-model`` of them on the
+model axis and ``n_data = gcd(batch, world // mesh_model)`` on the data
+axis, the JAX CLI's rule; a rank beyond ``n_data * mesh_model`` takes no
+part and exits 0.  With ``--device-data`` every rank makes the single
+process's global batch from the same seeds and keeps its slice, so the
+losses are the one-rank run's; from a dataset each rank reads its share
+of each batch of the global order.  Rank 0 alone writes checkpoints
+(the split weights gathered first) and logs.  Without those variables the
+world is this one process.
+
 What is not ported is refused with the ``ROADMAP.md`` item that holds it,
-never ignored: ``--mesh-model > 1`` (A.13) and ``--steps-per-dispatch > 1``
-(A.9: the JAX scan of K steps exists for a remote TPU's dispatch latency;
-its counterpart here is a CUDA graph of K steps).
+never ignored: ``--steps-per-dispatch > 1`` (A.9: the JAX scan of K steps
+exists for a remote TPU's dispatch latency; its counterpart here is a
+CUDA graph of K steps); and ``--mesh-model M`` with a world size that M
+does not divide.
 """
 from __future__ import annotations
 
 import argparse
+import math
 import os
 import time
 
@@ -49,18 +65,24 @@ import torch
 from .. import config as config_mod
 from ..data import BatchLoader, SyntheticDataset, device_prefetch
 from ..data.synthetic_device import synthetic_batch_device
+from ..parallel.mesh import ShardedEngine, make_mesh
 from ..utils.logging import MetricsLogger
 from .checkpoint import CheckpointManager, export_npz, warm_start_npz
 from .engine import Engine
 
 
-def refusal(args) -> str:
+def world_size() -> int:
+    """The ranks of ``torch.distributed.run`` (``WORLD_SIZE``), or 1."""
+    return int(os.environ.get("WORLD_SIZE", "1"))
+
+
+def refusal(args, world: int = 1) -> str:
     """The message for a flag this port does not support, or ''."""
     if args.dataset != "synthetic" and not args.dataroot:
         return f"--dataset {args.dataset} needs --dataroot"
-    if args.mesh_model > 1:
-        return ("--mesh-model > 1 is not ported yet: multi-card training "
-                "waits for ROADMAP.md A.13")
+    if args.mesh_model < 1 or world % args.mesh_model:
+        return (f"--mesh-model {args.mesh_model} needs a world size that "
+                f"is a multiple of it; the world has {world} rank(s)")
     if args.device_data and args.dataset != "synthetic":
         return "--device-data requires --dataset synthetic"
     if args.steps_per_dispatch > 1:
@@ -188,29 +210,84 @@ def device_batches(cfg, device, seeds):
         yield synthetic_batch_device(cfg, gen)
 
 
+def rank_device(device: str) -> torch.device:
+    """A rank's device: ``cuda`` is this rank's card, ``cuda:LOCAL_RANK``,
+    which must exist; any other name is taken as it is."""
+    dev = torch.device(device)
+    if dev.type != "cuda" or "LOCAL_RANK" not in os.environ:
+        return dev
+    local = int(os.environ["LOCAL_RANK"])
+    n = torch.cuda.device_count()
+    if local >= n:
+        raise RuntimeError(f"LOCAL_RANK {local} has no card: this host has "
+                           f"{n} (NCCL takes one rank per card)")
+    torch.cuda.set_device(local)
+    return torch.device("cuda", local)
+
+
 def main(argv=None):
     p = parser()
     args = p.parse_args(argv)
     if args.warm_start_partial and not args.warm_start:
         p.error("--warm-start-partial requires --warm-start")
-    msg = refusal(args)
+    world = world_size()
+    msg = refusal(args, world)
     if msg:
         raise SystemExit(msg)
 
     cfg = build_config(args)
+    distributed = "RANK" in os.environ and "WORLD_SIZE" in os.environ
+    device = rank_device(args.device)
+    if distributed:
+        import torch.distributed as dist
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                                init_method="env://")
+    try:
+        return _train(args, cfg, device, world, distributed)
+    finally:
+        if distributed:
+            dist.destroy_process_group()
+
+
+def _train(args, cfg, device, world: int, distributed: bool):
+    # the data axis must divide the batch; ranks beyond it take no part
+    n_data = (math.gcd(cfg.batch_size, world // args.mesh_model)
+              if distributed else 1)
+    mesh = (make_mesh(args.mesh_model, n_data, device=device)
+            if distributed else make_mesh(device=device))
+    lead = mesh.rank == 0
+    if not mesh.member:
+        print(f"rank {mesh.rank} takes no part: the mesh {mesh.shape} uses "
+              f"{n_data * args.mesh_model} of {world} ranks", flush=True)
+        return None
+    if lead and distributed:
+        print(f"mesh {mesh.shape} over {world} ranks", flush=True)
     epochs = args.epochs if args.epochs is not None else cfg.epochs
     train_ds, val_ds = build_datasets(cfg, args)
     steps_per_epoch = max(len(train_ds) // cfg.batch_size, 1)
 
-    engine = Engine(cfg, steps_per_epoch=steps_per_epoch, device=args.device)
-    logger = MetricsLogger(args.log_dir)
+    engine = ShardedEngine(cfg, mesh, steps_per_epoch=steps_per_epoch)
+    logger = MetricsLogger(args.log_dir) if lead else None
     # keep_period: mid-epoch --ckpt-every saves must not evict the epoch
     # boundaries (max_to_keep=5 alone cycles in 5 saves)
     ckpt = CheckpointManager(cfg.checkpoints_dir,
                              keep_period=10 * steps_per_epoch)
     npz_path = os.path.join(cfg.checkpoints_dir, "latest.npz")
-    state = engine.init_state(seed=args.seed)
+    # the single-process state: a restore or warm start fills it, then it
+    # is laid out on the mesh
+    state = Engine.init_state(engine, seed=args.seed)
     start_epoch = 0
+
+    def say(*a, **kw):
+        if lead:
+            print(*a, **kw)
+
+    def save(state, metrics=None):
+        """Rank 0 writes the single-process form of the state."""
+        full = engine.gather_state(state) if mesh.n_model > 1 else state
+        if lead:
+            ckpt.save(full, metrics=metrics)
+            export_npz(full, npz_path)
 
     def floor_to_epoch(what):
         """Restart an interrupted epoch from its beginning: floor the step
@@ -220,14 +297,14 @@ def main(argv=None):
         step0 = state.step
         epoch = step0 // steps_per_epoch
         state.step = epoch * steps_per_epoch
-        print(f"{what} at step {step0} (epoch {epoch}"
+        say(f"{what} at step {step0} (epoch {epoch}"
               + (f"; step floored to {state.step}"
                  if state.step != step0 else "") + ")")
         return epoch
 
     resumable = args.resume and ckpt.latest_step() is not None
     if args.warm_start and resumable:
-        print(f"warm-start SKIPPED: --resume found a checkpoint at step "
+        say(f"warm-start SKIPPED: --resume found a checkpoint at step "
               f"{ckpt.latest_step()} in {cfg.checkpoints_dir}, which wins "
               f"over --warm-start {args.warm_start}")
     elif args.warm_start:
@@ -239,65 +316,70 @@ def main(argv=None):
         # --epochs is the total budget: fresh-scene seeds, the validation
         # cadence and the log pick up where the interrupted run stopped
         start_epoch = floor_to_epoch("resumed")
+    engine.shard_state(state)
 
     generator = torch.Generator(device=engine.device).manual_seed(
         args.seed + 1)
+    shard = (mesh.data_index, mesh.n_data)
     last_ckpt = last_log = state.step
     for epoch in range(start_epoch, epochs):
         t_epoch = time.time()
         if hasattr(train_ds, "set_epoch"):
             train_ds.set_epoch(epoch)
         if args.device_data:
-            stream = device_batches(cfg, engine.device, (
-                (args.seed + 424242, epoch, i)
-                for i in range(steps_per_epoch)))
+            stream = map(engine.place_batch, device_batches(
+                cfg, engine.device, ((args.seed + 424242, epoch, i)
+                                     for i in range(steps_per_epoch))))
         else:
             stream = device_prefetch(
                 BatchLoader(train_ds, cfg.batch_size, shuffle=True,
                             num_workers=args.workers,
-                            seed=args.seed + epoch), engine.device)
+                            seed=args.seed + epoch, shard=shard),
+                engine.device)
         for batch in stream:
             state, metrics = engine.train_step(state, batch, generator)
             step = state.step
             if args.ckpt_every and step - last_ckpt >= args.ckpt_every:
                 last_ckpt = step
-                ckpt.save(state)
-                export_npz(state, npz_path)
+                save(state)
             if step - last_log >= args.log_every:
                 last_log = step
                 m = {k: float(v) for k, v in metrics.items()}
-                logger.log_scalars("train", m, step)
-                print(f"epoch {epoch} step {step}: " +
-                      ", ".join(f"{k}={v:.4f}" for k, v in m.items()),
-                      flush=True)
+                if lead:
+                    logger.log_scalars("train", m, step)
+                say(f"epoch {epoch} step {step}: " +
+                    ", ".join(f"{k}={v:.4f}" for k, v in m.items()),
+                    flush=True)
 
         # per-epoch validation (kitti/train_classifier.py:101-137)
         agg, n = {}, 0
         if args.device_data:
             # the same validation scenes every epoch
-            val_stream = device_batches(cfg, engine.device, (
-                (args.seed + 31337, i)
-                for i in range(max(len(val_ds) // cfg.batch_size, 1))))
+            val_stream = map(engine.place_batch, device_batches(
+                cfg, engine.device, ((args.seed + 31337, i) for i in range(
+                    max(len(val_ds) // cfg.batch_size, 1)))))
         else:
             val_stream = device_prefetch(
                 BatchLoader(val_ds, cfg.batch_size, shuffle=False,
-                            num_workers=args.workers), engine.device)
+                            num_workers=args.workers, shard=shard),
+                engine.device)
         for batch in val_stream:
             for k, v in engine.eval_step(state, batch).items():
                 agg[k] = agg.get(k, 0.0) + float(v)
             n += 1
         val = {k: v / n for k, v in agg.items()} if n else None
-        if val:
+        if val and lead:
             logger.log_scalars("val", val, state.step)
-            print(f"epoch {epoch} VAL: " +
-                  ", ".join(f"{k}={v:.4f}" for k, v in val.items()),
-                  flush=True)
-        ckpt.save(state, metrics=val)
-        export_npz(state, npz_path)
-        print(f"epoch {epoch} done in {time.time() - t_epoch:.1f}s",
-              flush=True)
+        if val:
+            say(f"epoch {epoch} VAL: " +
+                ", ".join(f"{k}={v:.4f}" for k, v in val.items()),
+                flush=True)
+        save(state, metrics=val)
+        say(f"epoch {epoch} done in {time.time() - t_epoch:.1f}s",
+            flush=True)
 
-    logger.close()
+    if lead:
+        logger.close()
     return state
 
 

@@ -102,6 +102,10 @@ def adam_update(params: List[torch.Tensor], grads: List[torch.Tensor],
 class Engine:
     """The detector's definition, optimiser and steps on one device."""
 
+    # the sum of a tensor over the ranks that split the batch (the loss's
+    # numerators and denominators); None on one process
+    _psum = None
+
     def __init__(self, cfg: Config, steps_per_epoch: int = 1000,
                  device="cuda"):
         self.cfg = cfg
@@ -133,11 +137,13 @@ class Engine:
         cfg = self.cfg
         labels = self._labels(batch)
         coarse, fine = out if cfg.is_fine_resolution else (out, None)
+        psum = self._psum
         loss, metrics = classification_loss(
             coarse, fine, labels, coarse_loss_alpha=cfg.coarse_loss_alpha,
-            inside_weight=cfg.coarse_inside_weight)
+            inside_weight=cfg.coarse_inside_weight, psum=psum)
         # the reference asserts this is zero (multimodal_classifier.py:169)
-        metrics["fine_violations"] = labels.fine_violations
+        v = labels.fine_violations
+        metrics["fine_violations"] = v if psum is None else psum(v)
         return loss, metrics
 
     # -- steps ---------------------------------------------------------------

@@ -6,6 +6,7 @@ misshapen key raises and names it.  The committed checkpoint is held to
 the JAX forward in ``test_torch_port_checkpoint_kitti.py``."""
 import contextlib
 import functools
+import shutil
 
 import jax
 import jax.numpy as jnp
@@ -22,6 +23,7 @@ from deepi2p_tpu_torch import config as tconfig
 from deepi2p_tpu_torch.models import INPUT_KEYS, KeypointDetector
 from deepi2p_tpu_torch.train.checkpoint import load_detector_npz, load_npz
 from deepi2p_tpu_torch.train.engine import Engine
+from torch_port_fixtures import tmp_path  # noqa: F401
 
 
 @contextlib.contextmanager
@@ -101,7 +103,8 @@ def tiny_npz(tmp_path_factory):
                     infer_probs_fine=eng.infer_probs_fine(state, jb))
     path = tmp_path_factory.mktemp("ckpt") / "tiny.npz"
     export_npz(state, str(path))
-    return path, batch, jax.tree.map(np.asarray, outs)
+    yield path, batch, jax.tree.map(np.asarray, outs)
+    shutil.rmtree(path.parent, ignore_errors=True)
 
 
 def test_engine_on_exported_npz_matches_jax_engine(tiny_npz):

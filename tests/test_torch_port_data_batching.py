@@ -20,6 +20,7 @@ from deepi2p_tpu_torch import config
 from deepi2p_tpu_torch.data import (BatchLoader, KittiLoader,
                                     SyntheticDataset, device_prefetch)
 from torch_port_data_trees import kitti_tree
+from torch_port_fixtures import tmp_path  # noqa: F401
 
 CFG = config.tiny(input_pt_num=64, node_a_num=8, node_b_num=8)
 

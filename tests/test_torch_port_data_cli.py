@@ -19,6 +19,7 @@ from deepi2p_tpu_torch.eval import cli as eval_cli
 from deepi2p_tpu_torch.eval.dump import list_dump_prefixes, load_dump
 from deepi2p_tpu_torch.train import cli as train_cli
 from torch_port_data_trees import kitti_tree
+from torch_port_fixtures import tmp_path  # noqa: F401
 
 # the KITTI preset cut to a tiny size (the fake tree's images are 200x300)
 SMALL = ["--points", "256", "--nodes", "16", "--img-h", "64",
@@ -29,9 +30,10 @@ SMALL = ["--points", "256", "--nodes", "16", "--img-h", "64",
 def kitti(tmp_path_factory):
     if shutil.which("g++") is None:
         pytest.skip("g++ not found: the native core cannot be built")
-    root = tmp_path_factory.mktemp("data") / "kitti"
-    return kitti_tree(root, np.random.default_rng(0), seqs=("00", "09"),
-                      img_dtype=np.uint8)
+    base = tmp_path_factory.mktemp("data")
+    yield kitti_tree(base / "kitti", np.random.default_rng(0),
+                     seqs=("00", "09"), img_dtype=np.uint8)
+    shutil.rmtree(base, ignore_errors=True)
 
 
 @pytest.fixture(autouse=True)

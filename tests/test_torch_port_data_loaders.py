@@ -55,8 +55,9 @@ def trees(tmp_path_factory):
     oxford = oxford_tree(base / "oxford", rng)
     (base / "nusc").mkdir()
     lidar, cams = mini_nuscenes(str(base / "nusc"), rng)
-    return dict(kitti=kitti, oxford=oxford, nusc=str(base / "nusc"),
-                nusc_tokens=(lidar, cams))
+    yield dict(kitti=kitti, oxford=oxford, nusc=str(base / "nusc"),
+               nusc_tokens=(lidar, cams))
+    shutil.rmtree(base, ignore_errors=True)
 
 
 def assert_same_samples(jax_loader, port_loader, n=None):

@@ -1,7 +1,8 @@
 """The port stands alone: it imports without JAX, flax, orbax, optax,
 the JAX package, OpenCV, matplotlib or PIL, its TensorBoard sink writes
 without TensorFlow, its debug images and dump overlays are written in
-that process, its
+that process, its KITTI prep and Oxford traversal build run there (PNGs
+read, JPEGs written by the port's own code), its
 entry points refuse to fall back to the CPU, its KITTI and Oxford loaders
 run without OpenCV (JPEGs through the port's own decoder), its native
 build reads only the port's sources, and ``chip_smoke.py`` fails without
@@ -54,7 +55,11 @@ for new in ("ops.projection", "register.icp", "eval.dump", "eval.depth",
             "models.depth", "train.depth_cli", "data.synthetic_device",
             "register.frustum_fast", "register.noise", "utils.png",
             "utils.vis", "eval.debug_vis", "ops.ball_query", "ops.som",
-            "models.extra_layers", "train.aux_losses", "utils.profiling"):
+            "models.extra_layers", "train.aux_losses", "utils.profiling",
+            "data.prep.kitti_prep", "data.prep.nuscenes_prep",
+            "data.prep.oxford_image", "data.prep.oxford_prep",
+            "parallel.collectives", "parallel.mesh",
+            "parallel.registration", "parallel.dryrun"):
     assert "deepi2p_tpu_torch." + new in names, new
 
 import os, tempfile
@@ -115,6 +120,66 @@ for f in ("000000_00_img.png", "000000_00_prediction.png",
           "000001_00_prediction.png", "000000_00_trace.png",
           "000000_00_scene.png", "000000_00_overlay.png"):
     assert read_png(os.path.join(viz_dir, f)).ndim == 3, f
+# the offline prep on small raw trees: KITTI velodyne, PNGs and poses;
+# an Oxford traversal of Bayer PNGs with a LUT, written as JPEGs
+from deepi2p_tpu_torch.data.prep import kitti_prep, oxford_prep
+from deepi2p_tpu_torch.utils.png import encode_png
+from pathlib import Path
+rng = np.random.default_rng(0)
+raw = Path(tempfile.mkdtemp())
+seq = raw / "sequences" / "00"
+for sub in ("velodyne", "image_2"):
+    (seq / sub).mkdir(parents=True)
+for i in range(2):
+    rng.normal(scale=10, size=(500, 4)).astype(np.float32).tofile(
+        seq / "velodyne" / f"{i:06d}.bin")
+    (seq / "image_2" / f"{i:06d}.png").write_bytes(encode_png(
+        rng.integers(0, 256, (12, 20, 3), dtype=np.uint8)))
+out = raw / "out"
+assert kitti_prep.prepare_kitti_velodyne(str(raw), str(out), [0],
+                                         voxel=0.5) == 2
+assert kitti_prep.kitti_png_to_npy(str(raw), str(out), [0]) == 2
+np.savetxt(raw / "00.txt", np.tile(np.eye(3, 4).reshape(1, 12), (2, 1)))
+assert kitti_prep.kitti_poses_to_npz(str(raw / "00.txt"),
+                                     str(out / "poses")) == 2
+assert np.load(out / "sequences/00/voxel0.1-SNr0.6/000001.npy").shape[0] == 7
+trav, us = "2015-01-01-00-00-00", 1_000_000
+t = raw / "ox" / trav
+for sub in ("vo", "stereo/centre"):
+    (t / sub).mkdir(parents=True)
+lms = raw / "lms" / trav / "lms_front"
+lms.mkdir(parents=True)
+with open(t / "vo" / "vo.csv", "w") as f:
+    f.write("source,destination,x,y,z,roll,pitch,yaw\n")
+    for i in range(1, 41):
+        f.write(f"{i * us // 10},{(i - 1) * us // 10},1.0,0,0,0,0,0\n")
+cam_ts = [i * us // 10 for i in range(41)]
+(t / "stereo" / "stereo.timestamps").write_text(
+    "".join(f"{ts} 1\n" for ts in cam_ts))
+for ts in cam_ts:
+    (t / "stereo" / "centre" / f"{ts}.png").write_bytes(encode_png(
+        rng.integers(0, 256, (16, 24), dtype=np.uint8)))
+lms_ts = [i * us // 50 for i in range(201)]
+(raw / "lms" / trav / "lms_front.timestamps").write_text(
+    "".join(f"{ts} 1\n" for ts in lms_ts))
+for ts in lms_ts:
+    np.stack([rng.uniform(-2, 0.5, 40), rng.uniform(-10, 10, 40),
+              rng.uniform(0, 255, 40)], 1).tofile(lms / f"{ts}.bin")
+u, v = np.meshgrid(np.arange(24.0) + 0.3, np.arange(16.0) - 0.2)
+np.stack([u.ravel(), v.ravel()]).tofile(raw / "lut.bin")
+ext = raw / "extrinsics"
+ext.mkdir()
+for name in ("stereo", "lms_front"):
+    (ext / f"{name}.txt").write_text("0 0 0 0 0 0\n")
+sdk = oxford_prep.sdk_from_extrinsics(str(ext), lut_path=str(raw / "lut.bin"))
+summary = oxford_prep.build_traversal(
+    trav, str(raw / "lms"), str(raw / "ox"), str(raw / "oxout"), sdk,
+    pc_sample_distance=2.0, accumulation_distance=10.0,
+    ignore_first_n_second=0.5)
+assert summary["n_pc"] > 0 and summary["n_img"] > 30, summary
+from deepi2p_tpu_torch.data.jpeg import decode
+jpg = sorted((raw / "oxout" / trav / "stereo" / "centre").iterdir())[0]
+assert decode(jpg).shape == (16, 24, 3)
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in REFUSED)
 assert not leaked, leaked
 print("isolated ok", len(names))
@@ -203,7 +268,9 @@ from pathlib import Path
 from deepi2p_tpu_torch.data import jpeg, native
 lib = native.build()
 assert Path(sys.argv[1]) in lib.parents, lib
-print(jpeg.decode(sys.argv[2], 2).shape)
+img = jpeg.decode(sys.argv[2], 2)
+assert jpeg.decode(jpeg.encode_jpeg(img)).shape == img.shape
+print(img.shape)
 '''
 
 
@@ -216,7 +283,8 @@ def test_builds_read_only_the_ports_sources(tmp_path):
     from deepi2p_tpu_torch.data import native
     srcs = [*_build.sources(), *native.SOURCES]
     assert {p.name for p in srcs} >= {"knn.cu", "nn1.cu", "frustum_lm.cu",
-                                      "deepi2p_data.cpp", "jpeg.cpp"}
+                                      "deepi2p_data.cpp", "jpeg.cpp",
+                                      "jpeg_encode.cpp"}
     for src in srcs:
         assert _build.PKG_DIR in src.resolve().parents, src
         assert not re.search(r'#\s*include\s*"', src.read_text()), src

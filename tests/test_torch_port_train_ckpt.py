@@ -7,6 +7,7 @@
 JAX rules; and ``CheckpointManager`` saves, keeps and restores full train
 states."""
 import os
+import shutil
 from pathlib import Path
 
 import jax
@@ -37,6 +38,7 @@ from deepi2p_tpu_torch.train.engine import Engine, TrainState
 from test_torch_port_checkpoint import calibrated, interpret_knn, \
     random_weights
 from test_torch_port_train_parts import one_torch_thread  # noqa: F401
+from torch_port_fixtures import tmp_path  # noqa: F401
 
 CKPT = Path(__file__).resolve().parents[1] / "ckpts/kitti_shape_r4/latest.npz"
 
@@ -118,7 +120,8 @@ def jax_npz(tmp_path_factory):
     jax_export_npz(JaxTrainState(step=jnp.asarray(777, jnp.int32),
                                  params=params, batch_stats=stats,
                                  opt_state=None), path)
-    return path
+    yield path
+    shutil.rmtree(os.path.dirname(path), ignore_errors=True)
 
 
 def test_jax_npz_warm_starts_the_port_across_geometries(jax_npz, tmp_path,

@@ -10,6 +10,7 @@ import torch
 from deepi2p_tpu_torch.train import cli
 from deepi2p_tpu_torch.train.engine import Engine
 from test_torch_port_train_parts import one_torch_thread  # noqa: F401
+from torch_port_fixtures import tmp_path  # noqa: F401
 
 
 def _run(tmp_path, *extra):
@@ -91,7 +92,8 @@ def test_device_batches_are_the_seeded_generators():
 
 @pytest.mark.parametrize("flags,message", [
     (("--steps-per-dispatch", "2"), "ROADMAP.md A.9"),
-    (("--mesh-model", "2"), "ROADMAP.md A.13"),
+    (("--mesh-model", "2"), "--mesh-model 2 needs a world size that is a "
+                            "multiple of it"),
     (("--dataset", "kitti", "--dataroot", "/nonexistent"),
      "--device-data requires --dataset synthetic"),
 ])
