@@ -116,9 +116,16 @@ announced as ``phase=<name> start|done t=<seconds>``:
     nodes, B=8, 160x512, bf16 activations, f32 parameters, seeded
     weights): the kNN kernel against its plain version at the training
     forward's four calls; two batches made before the clock, two warm-up
-    steps, then ten timed ``Engine.train_step``s ending in a CUDA sync
+    steps; from that state and one generator seed, one
+    ``Engine.train_step_scan`` of 4 steps (``--steps-per-dispatch``)
+    against 3 runs of 4 ``train_step`` calls, cuDNN deterministic: every
+    metric, parameter, running statistic and Adam moment bitwise equal,
+    or else each part's distance from the nearest run within the runs'
+    own spread, and 16 kNN launches per call; then ten timed
+    ``Engine.train_step``s ending in a CUDA sync
     (ms/step, samples/s, peak memory), finite losses and exactly 4 kNN
-    launches per step; twenty steps on one batch must lower the loss;
+    launches per step, and 3 timed 4-step calls right after (ms/step at
+    K=4 beside K=1); twenty steps on one batch must lower the loss;
     ``CheckpointManager`` save -> restore and ``export_npz`` ->
     ``warm_start_npz`` into a temporary directory, exact; then one step
     (B=2) on the card against the same step on the CPU from the same
@@ -158,8 +165,11 @@ announced as ``phase=<name> start|done t=<seconds>``:
     epochs of 12 bf16 steps (exactly 4 kNN launches per train step, finite
     losses, ms/step and samples/s end to end over the second epoch beside
     the ``train`` phase's, the validation batches bitwise equal across the
-    epochs); 3 such steps under ``torch.profiler`` without a
-    host-to-device copy the size of an image batch.
+    epochs); the same run with ``--steps-per-dispatch 4`` (3 calls per
+    epoch, 16 kNN launches each, no single step, step 24 at the end,
+    ms/step over the second epoch's last 2 calls); 3 single steps under
+    ``torch.profiler`` without a host-to-device copy the size of an
+    image batch.
 18. ``debug``: the ``eval`` batch dumped again with ``viz_dir`` (two PNGs
     per sample, decoded by the port's ``read_png``);
     ``solve_frustum_batch(backend="fast")`` (60 inits, 32 iterations, the
@@ -198,14 +208,20 @@ announced as ``phase=<name> start|done t=<seconds>``:
     generators: inits bitwise, poses and costs at the JAX dry run's
     bounds, at its solve (8 inits, 4 iterations; 4 kNN and 1 LM launch
     per rank) and at the main path's (64 inits, 24 iterations, stride 2;
-    4 kNN and 2 LM launches per rank); then ``train.cli`` at world size 1
-    over NCCL for 2 steps, in this process with the environment
-    ``torch.distributed.run`` sets.
+    4 kNN and 2 LM launches per rank); on the TP layout, the JAX dry run's
+    point-axis sharding (each rank holds half of the clouds' points,
+    gathered at the step's entry): the eval loss within 1e-3 relative of
+    the DP layout's and a train step from it to a finite loss, parameters
+    bitwise equal across ranks; then ``train.cli`` at world size 1 over
+    NCCL for 2 steps in one ``--steps-per-dispatch 2`` call, in this
+    process with the environment ``torch.distributed.run`` sets.
 
 Then a ``kernels=`` line, one JSON line of per-kernel numbers (launches
 from the path each kernel serves: ``slice`` for kNN and the 2-D LM,
 ``solve6`` for the 6-DoF LM, ``eval`` for the 1-NN; the kNN entry also
-carries ``train_launches_per_step``, ``data_launches_per_step``,
+carries ``train_launches_per_step``, ``train_scan_launches_per_call``
+and ``device_data_scan_launches_per_call`` (4-step calls),
+``data_launches_per_step``,
 ``device_data_launches_per_step``, ``debug_launches``,
 ``prep_launches_per_step`` and ``rank_launches`` (per rank of the
 ``parallel`` registration), the 2-D LM ``data_solve_launches``,
@@ -272,6 +288,9 @@ TRAIN_WARMUP = 2
 TRAIN_TIMED = 10
 TRAIN_LEARN = 20
 TRAIN_REF_BATCH = 2      # the card-against-CPU steps
+TRAIN_SCAN_K = 4         # train_step_scan: K steps per call
+TRAIN_SCAN_RUNS = 3      # runs of K single steps from one state
+TRAIN_SCAN_CALLS = 3     # timed K-step calls
 TRAIN_LOSS_RTOL = 1e-5
 TRAIN_STATS_RTOL = 1e-5
 # the f32 step's whole gradient against the float64 one: a gross check
@@ -343,6 +362,7 @@ REF_POSE_ATOL = 1e-3
 # the device_data phase: train.cli --device-data at the train phase's
 # configuration; the debug phase: the eval batch's dump
 DD_STEPS = 12            # train steps per --device-data epoch
+DD_K = 4                 # --steps-per-dispatch of the second run
 DD_VAL = 16              # validation samples: 2 batches
 DD_BATCH_REPS = 10       # synthetic_batch_device calls timed
 DD_PROFILED = 3          # device-data steps under torch.profiler
@@ -374,6 +394,7 @@ PREP_ENCODE_DIGESTS = "tests/data/torch_port_jpeg_encode"
 PAR_RANKS = 2
 PAR_BATCH = 8            # the KITTI-shaped step, 4 per rank
 PAR_STEPS = 2            # the first held to one rank's, the second timed
+PAR_CLI_K = 2            # --steps-per-dispatch of the NCCL train.cli run
 PAR_PAIRS = 32           # the Oxford registration, 16 per rank
 # held at the JAX dry run's bounds to one rank solving in chunks of a
 # rank's 16 pairs, at the dry run's solve (8 inits, 4 iterations: one LM
@@ -1925,11 +1946,103 @@ def train_reference(torch, config):
             f"from float64 > {TRAIN_F32_GRAD_RTOL:g}")
 
 
+def _train_snapshot(torch, state, metrics) -> dict:
+    """Copies of a state's parameters, statistics and Adam moments (on the
+    card) and of its metrics (on the host), each part one f64 vector."""
+    def flat(ts):
+        return torch.cat([t.detach().double().reshape(-1) for t in ts])
+    sd = state.model.state_dict()
+    names = {n for n, _ in state.model.named_parameters()}
+    return dict(
+        step=state.step,
+        params=flat([sd[k] for k in sorted(names)]),
+        stats=flat([sd[k] for k in sorted(sd) if "running" in k]),
+        mu=flat(state.mu), nu=flat(state.nu),
+        metrics=torch.tensor([float(metrics[k]) for k in sorted(metrics)],
+                             dtype=torch.float64))
+
+
+SCAN_PARTS = ("metrics", "params", "stats", "mu", "nu")
+SCAN_SPREAD_FACTOR = 3   # where the single-step runs are not bitwise
+
+
+def scan_check(torch, engine, state0, batches) -> dict:
+    """One ``train_step_scan`` of TRAIN_SCAN_K steps against
+    TRAIN_SCAN_RUNS runs of TRAIN_SCAN_K ``train_step`` calls, each from a
+    copy of ``state0`` and a generator of one seed, on the stack of
+    ``batches`` cycled, with cuDNN deterministic, PyTorch's deterministic
+    algorithms (``warn_only``: an op without one warns, and the warnings
+    are returned) and TF32 off.  Where the runs are bitwise equal, the
+    call must be bitwise equal to them in every part (metrics,
+    parameters, running statistics, Adam moments); else the relative norm
+    of its difference from the nearest run must stay within
+    SCAN_SPREAD_FACTOR times the largest between two runs."""
+    import copy
+    import warnings
+    from deepi2p_tpu_torch.ops.knn_cuda import knn_cuda
+
+    K = TRAIN_SCAN_K
+    steps = [batches[i % len(batches)] for i in range(K)]
+    stack = {k: torch.stack([b[k] for b in steps]) for k in steps[0]}
+    det = (torch.backends.cudnn.deterministic,
+           torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("default")
+            runs = []
+            for _ in range(TRAIN_SCAN_RUNS):
+                state = copy.deepcopy(state0)
+                gen = torch.Generator(device="cuda").manual_seed(7)
+                for b in steps:
+                    _, metrics = engine.train_step(state, b, gen)
+                runs.append(_train_snapshot(torch, state, metrics))
+                del state
+            state = copy.deepcopy(state0)
+            gen = torch.Generator(device="cuda").manual_seed(7)
+            before = knn_cuda.launches
+            _, metrics = engine.train_step_scan(state, stack, gen)
+            torch.cuda.synchronize()
+            launches = knn_cuda.launches - before
+            scan = _train_snapshot(torch, state, metrics)
+            del state
+    finally:
+        torch.backends.cudnn.deterministic = det[0]
+        torch.use_deterministic_algorithms(det[1], warn_only=det[2])
+    nondet = sorted({str(w.message).split(".")[0][:120] for w in caught
+                     if "determinis" in str(w.message)})
+    require(launches == 4 * K, f"train: a {K}-step call launched the kNN "
+            f"kernel {launches} times, not {4 * K}")
+    require(all(r["step"] == scan["step"] == state0.step + K for r in runs),
+            f"train: steps {[r['step'] for r in runs]}, scan {scan['step']}")
+
+    def rel(a, b):
+        return float((a - b).norm() / b.norm().clamp(min=1e-300))
+    same = {p: all(torch.equal(runs[0][p], r[p]) for r in runs[1:])
+            for p in SCAN_PARTS}
+    bitwise = {p: all(torch.equal(scan[p], r[p]) for r in runs)
+               for p in SCAN_PARTS}
+    spread = {p: max(rel(a[p], b[p]) for i, a in enumerate(runs)
+                     for b in runs[i + 1:]) for p in SCAN_PARTS}
+    dev = {p: min(rel(scan[p], r[p]) for r in runs) for p in SCAN_PARTS}
+    for p in SCAN_PARTS:
+        require(bitwise[p] if same[p] else
+                dev[p] <= SCAN_SPREAD_FACTOR * spread[p],
+                f"train: the {K}-step call's {p} {dev[p]:.3g} from the "
+                f"nearest of {TRAIN_SCAN_RUNS} runs of {K} steps, whose "
+                f"spread is {spread[p]:.3g} (runs bitwise: {same[p]})")
+    return dict(bitwise=all(bitwise.values()), runs_bitwise=same,
+                spread=spread, dev=dev, launches=launches, nondet=nondet,
+                loss=float(metrics["loss"]))
+
+
 def train_phase(torch):
     """The training path at the committed KITTI-shaped run: timed bf16
     steps, kNN launches per step, the kNN at the training forward's four
-    calls, learning on one batch, checkpoints, and the card against the
-    CPU."""
+    calls, K steps per call against K single steps, learning on one
+    batch, checkpoints, and the card against the CPU."""
     from deepi2p_tpu_torch import config
     from deepi2p_tpu_torch.data import batch_to_torch, synthetic_batch
     from deepi2p_tpu_torch.ops.knn_cuda import knn_cuda
@@ -1958,6 +2071,21 @@ def train_phase(torch):
     for i in range(TRAIN_WARMUP):
         engine.train_step(state, batches[i % 2], gen)
     torch.cuda.synchronize()
+    scan = scan_check(torch, engine, state, batches)
+    K = TRAIN_SCAN_K
+    log(f"train: one {K}-step train_step_scan against {TRAIN_SCAN_RUNS} "
+        f"runs of {K} train_step calls from one state and generator seed "
+        f"(cuDNN deterministic, deterministic algorithms, TF32 off): "
+        + ("bitwise equal in every metric, parameter, running statistic "
+           "and Adam moment" if scan["bitwise"] else
+           "not bitwise; relative norm from the nearest run against the "
+           "runs' own spread: " + ", ".join(
+               f"{p} {scan['dev'][p]:.3g} vs {scan['spread'][p]:.3g}"
+               + (" (runs bitwise)" if scan["runs_bitwise"][p] else "")
+               for p in SCAN_PARTS))
+        + f"; kNN launches per call {scan['launches']}; last-trip loss "
+        f"{scan['loss']:.6f}; ops without a deterministic algorithm: "
+        + ("; ".join(scan["nondet"]) or "none"))
     torch.cuda.reset_peak_memory_stats()
     knn_cuda.launches = 0
     losses = []
@@ -1982,6 +2110,29 @@ def train_phase(torch):
         f"memory {peak:.3f} GiB, kNN launches {launches} "
         f"({launches // TRAIN_TIMED} per step); losses "
         + " ".join(f"{x:.4f}" for x in losses))
+
+    stack = {k: torch.stack([batches[i % 2][k] for i in range(K)])
+             for k in batches[0]}
+    knn_cuda.launches = 0
+    scan_losses = []
+    t = time.perf_counter()
+    for _ in range(TRAIN_SCAN_CALLS):
+        _, metrics = engine.train_step_scan(state, stack, gen)
+        scan_losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    dt_scan = time.perf_counter() - t
+    scan_losses = [float(x) for x in scan_losses]
+    require(all(math.isfinite(x) for x in scan_losses)
+            and knn_cuda.launches == 4 * K * TRAIN_SCAN_CALLS,
+            f"train: {K}-step calls: losses {scan_losses}, kNN launches "
+            f"{knn_cuda.launches}")
+    ms_scan = dt_scan / (K * TRAIN_SCAN_CALLS) * 1e3
+    per_call = knn_cuda.launches // TRAIN_SCAN_CALLS
+    log(f"train: {TRAIN_SCAN_CALLS} train_step_scan calls of {K} steps "
+        f"right after: {ms_scan:.3f} ms/step at K={K} against {ms:.3f} at "
+        f"K=1, kNN launches {knn_cuda.launches} ({per_call} per call); "
+        "last-trip losses "
+        + " ".join(f"{x:.4f}" for x in scan_losses))
 
     learn = []
     for _ in range(TRAIN_LEARN):
@@ -2015,7 +2166,9 @@ def train_phase(torch):
 
     train_reference(torch, config)
     return dict(ms=ms, samples_s=B * TRAIN_TIMED / dt, peak_gib=peak,
-                launches_per_step=launches // TRAIN_TIMED, knn_err=err)
+                launches_per_step=launches // TRAIN_TIMED, knn_err=err,
+                ms_scan=ms_scan, scan_launches_per_call=scan["launches"],
+                scan_bitwise=scan["bitwise"])
 
 
 KITTI_K = ("7.215377e+02 0 6.095593e+02 {tx} 0 7.215377e+02 1.728540e+02 "
@@ -2692,6 +2845,59 @@ def _device_data_steps(torch, cfg):
                 per_step=per_step[0], losses=losses)
 
 
+def _device_data_scan(torch, cfg):
+    """``train.cli --device-data --steps-per-dispatch DD_K`` at the train
+    phase's configuration for two epochs of DD_STEPS steps on the card:
+    the kNN launches of each call, the end-to-end time of the second
+    epoch's calls after its first, the final step and the last loss."""
+    from deepi2p_tpu_torch.ops.knn_cuda import knn_cuda
+    from deepi2p_tpu_torch.train import cli as train_cli
+    from deepi2p_tpu_torch.train.engine import Engine
+
+    calls = DD_STEPS // DD_K
+    per_call, losses, stamps = [], [], []
+    scan, step = Engine.train_step_scan, Engine.train_step
+
+    def counted(self, state, batches, gen):
+        before = knn_cuda.launches
+        state, metrics = scan(self, state, batches, gen)
+        per_call.append(knn_cuda.launches - before)
+        losses.append(metrics["loss"])
+        if len(per_call) in (calls + 1, 2 * calls):
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+        return state, metrics
+
+    def single(*a, **k):
+        raise CheckFailed("device_data: a single train step in a "
+                          f"--steps-per-dispatch {DD_K} run")
+
+    Engine.train_step_scan, Engine.train_step = counted, single
+    try:
+        with tempfile.TemporaryDirectory(prefix="deepi2p_ddk_") as d:
+            state = train_cli.main([
+                "--dataset", "synthetic", "--device-data",
+                "--synthetic-preset", "kitti", "--synthetic-scene",
+                "street", "--points", str(TRAIN_N), "--nodes",
+                str(TRAIN_NODES), "--synthetic-len",
+                str(DD_STEPS * cfg.batch_size), "--val-len", str(DD_VAL),
+                "--epochs", "2", "--log-every", "1000",
+                "--steps-per-dispatch", str(DD_K),
+                "--checkpoints-dir", f"{d}/ck", "--log-dir", f"{d}/log"])
+    finally:
+        Engine.train_step_scan, Engine.train_step = scan, step
+    losses = [float(x) for x in losses]
+    require(state.step == 2 * DD_STEPS,
+            f"device_data: K={DD_K} run ended at step {state.step}")
+    require(per_call == [4 * DD_K] * (2 * calls),
+            f"device_data: kNN launches per {DD_K}-step call {per_call}")
+    require(all(math.isfinite(x) for x in losses),
+            f"device_data: non-finite loss in {losses}")
+    ms = (stamps[1] - stamps[0]) / (DD_STEPS - DD_K) * 1e3
+    return dict(ms=ms, step=state.step, per_call=per_call[0],
+                loss=losses[-1])
+
+
 def _htod_bytes(torch, cfg, steps: int, tries: int = 4):
     """The host-to-device copies of ``steps`` device-data train steps
     under ``torch.profiler`` (Chrome trace), traced again when a trace
@@ -2794,6 +3000,13 @@ def device_data_phase(torch, train):
         f"batches bitwise equal across the epochs; losses "
         + " ".join(f"{x:.4f}" for x in run["losses"][-4:]))
 
+    scan = _device_data_scan(torch, cfg)
+    log(f"device_data: train.cli --device-data --steps-per-dispatch {DD_K}"
+        f", 2 epochs of {DD_STEPS} bf16 steps: {scan['ms']:.3f} ms/step end"
+        f" to end (second epoch, after its first call) against "
+        f"{run['ms']:.3f} at K=1; final step {scan['step']}, kNN launches "
+        f"{scan['per_call']} per call, last loss {scan['loss']:.4f}")
+
     img_bytes = B * H * W * 3 * 4
     biggest, copies, kernels = _htod_bytes(torch, cfg, DD_PROFILED)
     require(biggest < img_bytes,
@@ -2802,7 +3015,7 @@ def device_data_phase(torch, train):
     log(f"device_data: {DD_PROFILED} steps under torch.profiler: "
         f"{copies} host-to-device copies, the largest {biggest} bytes "
         f"(an image batch is {img_bytes}), {kernels} kernels")
-    return dict(ms_batch=ms_batch, **run)
+    return dict(ms_batch=ms_batch, scan=scan, **run)
 
 
 def _edge_codes(torch, pts, K, theta, H: int, W: int):
@@ -3444,7 +3657,8 @@ def parallel_phase(torch) -> dict:
             raise CheckFailed(f"parallel: train step: {e}") from e
         require(dp["grad64_err"] <= PAR_GRAD64_ATOL
                 and tp["grad64_err"] <= PAR_GRAD64_ATOL and tp["n_split"] > 0
-                and results[0]["train_tp"]["mesh"] == {"data": 1, "model": 2},
+                and results[0]["train_tp"]["mesh"] == {"data": 1, "model": 2}
+                and "points" in tp and "points" not in dp,
                 f"parallel: DP {dp}, TP {tp}")
         log(f"parallel: {PAR_RANKS} gloo ranks on one card "
             f"({wall:.1f} s from spawn to results): DP step of the "
@@ -3460,6 +3674,14 @@ def parallel_phase(torch) -> dict:
             f"; 1x2 TP step: {tp['n_split']} split tensors, loss "
             f"{tp['loss']:.6f}, float64 gradient within "
             f"{tp['grad64_err']:.3e}, {tp['step_s'] * 1e3:.3f} ms")
+        pts = tp["points"]
+        log(f"parallel: the 1x2 TP layout with the point axis split too "
+            f"(each rank {pts['points']} of pc, gathered at the step's "
+            f"entry): eval loss {pts['eval_loss']!r} against the DP "
+            f"layout's {pts['eval_loss_dp']!r} (relative difference "
+            f"{pts['eval_rel_diff']:.3g}, held within "
+            f"{dryrun.POINTS_RTOL:g}), a train step from it to loss "
+            f"{pts['loss']:.6f}, parameters bitwise equal across ranks")
         mesh1 = make_mesh(1, device="cuda")
         try:
             held, main = (dryrun.check_register(
@@ -3495,22 +3717,25 @@ def parallel_phase(torch) -> dict:
         cli_s, out = nccl_train_cli(torch, tmp)
         log(f"parallel: train.cli in this process with the environment of "
             f"torch.distributed.run at world size 1 (NCCL), 2 bf16 steps of "
-            f"--device-data at the KITTI shape: {cli_s:.1f} s wall, "
+            f"--device-data at the KITTI shape in one call of "
+            f"--steps-per-dispatch {PAR_CLI_K}: {cli_s:.1f} s wall, "
             f"checkpoint written; it said: {out.strip().splitlines()[0]}")
     return dict(dp=dp, tp=tp, register=main)
 
 
 def nccl_train_cli(torch, tmp):
-    """``train.cli --device-data`` for 2 steps in this process, with the
-    environment ``torch.distributed.run`` gives a world of one rank: it
-    joins an NCCL process group of one on this card and leaves it at the
-    end.  Returns (seconds, what it printed)."""
+    """``train.cli --device-data --steps-per-dispatch PAR_CLI_K`` for 2
+    steps (one call) in this process, with the environment
+    ``torch.distributed.run`` gives a world of one rank: it joins an NCCL
+    process group of one on this card and leaves it at the end.  Returns
+    (seconds, what it printed)."""
     import contextlib
     import io
     import os
     import socket
     import torch.distributed as dist
     from deepi2p_tpu_torch.train import cli as train_cli
+    from deepi2p_tpu_torch.train.engine import Engine
 
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
@@ -3525,9 +3750,16 @@ def nccl_train_cli(torch, tmp):
         backends.append(backend)
         return init(backend, *a, **kw)
 
+    scan, calls = Engine.train_step_scan, []
+
+    def counted(self, state, batches, gen):
+        calls.append(tuple(batches["pc"].shape[:2]))
+        return scan(self, state, batches, gen)
+
     buf = io.StringIO()
     os.environ.update(env)
     dist.init_process_group = recorded
+    Engine.train_step_scan = counted
     t = time.perf_counter()
     try:
         with contextlib.redirect_stdout(buf):
@@ -3536,11 +3768,12 @@ def nccl_train_cli(torch, tmp):
                 "--synthetic-preset", "kitti", "--synthetic-scene", "street",
                 "--points", str(TRAIN_N), "--nodes", str(TRAIN_NODES),
                 "--synthetic-len", "16", "--val-len", "8", "--epochs", "1",
-                "--log-every", "1", "--checkpoints-dir", f"{tmp}/ck",
-                "--log-dir", f"{tmp}/log"])
+                "--log-every", "1", "--steps-per-dispatch", str(PAR_CLI_K),
+                "--checkpoints-dir", f"{tmp}/ck", "--log-dir", f"{tmp}/log"])
         torch.cuda.synchronize()
     finally:
         dist.init_process_group = init
+        Engine.train_step_scan = scan
         for k, v in saved.items():
             if v is None:
                 os.environ.pop(k, None)
@@ -3549,9 +3782,11 @@ def nccl_train_cli(torch, tmp):
     cli_s = time.perf_counter() - t
     out = buf.getvalue()
     require(backends == ["nccl"] and not dist.is_initialized()
+            and calls == [(PAR_CLI_K, 8)]
             and "over 1 ranks" in out and "epoch 0 step 2:" in out
             and os.path.isfile(f"{tmp}/ck/latest.npz"),
-            f"parallel: train.cli at world size 1 (backends {backends}): "
+            f"parallel: train.cli at world size 1 (backends {backends}, "
+            f"{PAR_CLI_K}-step calls {calls}): "
             f"{out[-800:]}")
     return cli_s, out
 
@@ -3642,6 +3877,9 @@ def main() -> int:
              replaces="deepi2p_tpu/ops/knn_pallas.py:60",
              launches=launches["knn"],
              train_launches_per_step=train["launches_per_step"],
+             train_scan_launches_per_call=train["scan_launches_per_call"],
+             device_data_scan_launches_per_call=device_data["scan"][
+                 "per_call"],
              data_launches_per_step=data["knn_per_step"],
              device_data_launches_per_step=device_data["per_step"],
              debug_launches=debug["knn_launches"],

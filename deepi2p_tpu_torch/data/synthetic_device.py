@@ -18,7 +18,7 @@ labels are computed in exact f32, ``ops/projection.py``).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Sequence
 
 import torch
 
@@ -252,12 +252,15 @@ def synthetic_batch_device(cfg: Config, generator: torch.Generator,
 
 
 @torch.no_grad()
-def synthetic_stacked_device(cfg: Config, generator: torch.Generator,
-                             k_steps: int, batch_size: int | None = None
+def synthetic_stacked_device(cfg: Config,
+                             generators: Sequence[torch.Generator],
+                             batch_size: int | None = None
                              ) -> Dict[str, torch.Tensor]:
-    """(K, B, ...) stacked batches (the JAX package's
-    ``synthetic_stacked_jax``), for a K-step dispatch (``ROADMAP.md``
-    A.9)."""
-    batches = [synthetic_batch_device(cfg, generator, batch_size)
-               for _ in range(k_steps)]
+    """(K, B, ...) stacked batches for a K-step call
+    (``Engine.train_step_scan``; the JAX package's
+    ``synthetic_stacked_jax``): batch k is :func:`synthetic_batch_device`
+    of ``generators[k]``, so a stack of K per-step generators holds the
+    batches K single steps would take."""
+    batches = [synthetic_batch_device(cfg, g, batch_size)
+               for g in generators]
     return {k: torch.stack([b[k] for b in batches]) for k in batches[0]}

@@ -11,12 +11,16 @@ single-process computation in the launching process:
   (``n_model = 2`` when N >= 4 and even): the loss and metrics, those of
   the eval step from the same initial state, the gradient of a float64 copy (gathered over the model axis), parameters
   bitwise equal across ranks after the step, the running statistics;
+* with ``n_model > 1``, the JAX dry run's point-axis sharding
+  (``__graft_entry__.py:120-146``): after the step, the batch placed with
+  the clouds' point axis split over the model ranks as well
+  (``mesh.shard_points``; the engine gathers it at the step's entry, as
+  GSPMD inserts all-gathers), its eval loss within 1e-3 relative of the
+  DP layout's, then a train step from it to a finite loss with the
+  parameters bitwise equal across ranks;
 * the sharded registration, 2-D and 6-DoF, of a batch of ``2 * N`` pairs
   over all N ranks, held to the one-rank solve with the same pair
   generators at the JAX dry run's tolerances.
-
-The point-axis sharding of the JAX dry run (``__graft_entry__.py:120-146``)
-has no counterpart yet (``ROADMAP.md``).
 
 :func:`launch` and :func:`rank_job` are the building blocks the tests and
 ``chip_smoke.py`` use: a job is a dict, each rank writes its results to
@@ -25,6 +29,7 @@ has no counterpart yet (``ROADMAP.md``).
 from __future__ import annotations
 
 import argparse
+import math
 import os
 import sys
 import tempfile
@@ -39,7 +44,8 @@ from .. import config as config_mod
 from ..data.synthetic import synthetic_batch
 from ..models.detector import INPUT_KEYS
 from ..train.engine import Engine, TrainState
-from .mesh import Mesh, ShardedEngine, gather_state, make_mesh, n_split
+from .mesh import (Mesh, ShardedEngine, gather_state, make_mesh, n_split,
+                   shard_points)
 from .registration import (make_sharded_registration, pair_generators,
                            place_for_registration)
 
@@ -48,6 +54,7 @@ POSE_2D = dict(rtol=1e-4, atol=1e-5)
 POSE_6D = dict(rtol=1e-3, atol=2e-4)
 COST = dict(rtol=1e-4, atol=1e-3)
 GRAD64_ATOL = 1e-8
+POINTS_RTOL = 1e-3   # the point-sharded eval loss (__graft_entry__.py:136)
 SEED, GEN_SEED, PAIR_SEED = 0, 1, 7   # weights, dropout, pair inits
 
 
@@ -152,10 +159,28 @@ def train_job(mesh: Mesh, cfg, job: Dict) -> Dict:
             out["stats"] = _stats(state.model)
     out["step_s"] = times
     out["params_sha"] = digest(gather_state(mesh, state).model.state_dict())
+    if mesh.n_model > 1:
+        out["points"] = points_step(mesh, eng, state, batch, local, gen)
     if ref is not None:
         out["ref"] = {k: ref[k] for k in ("metrics", "eval", "stats",
                                           "loss64", "step_s")}
     return out
+
+
+def points_step(mesh: Mesh, eng: ShardedEngine, state: TrainState,
+                batch: Dict, local: Dict, gen: torch.Generator) -> Dict:
+    """The JAX dry run's point-axis sharding: the eval loss of the batch
+    with the clouds' point axis split over the model ranks against that
+    of ``local`` (the DP layout), then a train step from the point-sharded
+    batch."""
+    sp = shard_points(mesh, batch)
+    loss_dp = float(eng.eval_step(state, local)["loss"])
+    loss_sp = float(eng.eval_step(state, sp)["loss"])
+    state, metrics = eng.train_step(state, sp, gen)
+    return dict(points=tuple(sp["pc"].shape), eval_loss_dp=loss_dp,
+                eval_loss=loss_sp, loss=float(metrics["loss"]),
+                params_sha=digest(gather_state(mesh, state).model
+                                  .state_dict()))
 
 
 def register_job(mesh: Mesh, cfg, job: Dict) -> Dict:
@@ -215,8 +240,9 @@ def _floats(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
 
 
 def _stats(model) -> Dict[str, torch.Tensor]:
-    """The batch-norm running statistics by name, on the CPU."""
-    return {k: v.detach().cpu() for k, v in model.state_dict().items()
+    """A copy of the batch-norm running statistics by name, on the CPU
+    (later steps update the model's in place)."""
+    return {k: v.detach().cpu().clone() for k, v in model.state_dict().items()
             if k.endswith(("running_mean", "running_var"))}
 
 
@@ -417,7 +443,26 @@ def check_train(results: List[Dict], loss_rtol: float = 1e-5,
     assert stats_rtol is None or read["stats_err"] <= stats_rtol, read
     read["step_s"] = min(tr[0]["step_s"])
     read["step_s_ref"] = ref["step_s"]
+    if "points" in tr[0]:
+        read["points"] = check_points([t["points"] for t in tr])
     return read
+
+
+def check_points(pts: List[Dict]) -> Dict:
+    """The ranks' point-sharded readings (:func:`points_step`): each eval
+    loss within :data:`POINTS_RTOL` of its DP layout's, a finite train
+    loss, parameters bitwise equal across ranks.  Returns rank 0's
+    readings with the largest relative difference of the eval losses."""
+    diff = 0.0
+    for p in pts:
+        ref = p["eval_loss_dp"]
+        d = abs(p["eval_loss"] - ref) / max(abs(ref), 1.0)
+        assert d <= POINTS_RTOL, ("point-sharded eval loss", p)
+        assert math.isfinite(p["loss"]), ("point-sharded train loss", p)
+        diff = max(diff, d)
+    assert len({p["params_sha"] for p in pts}) == 1, \
+        "rank parameters after the point-sharded step"
+    return dict(pts[0], eval_rel_diff=diff)
 
 
 def check_register(results: List[Dict], ref: Dict, key: str = "register"
@@ -484,7 +529,12 @@ def main(argv=None) -> int:
           f"split={read['train']['n_split']} "
           f"grad64_err={read['train'].get('grad64_err')} "
           f"loss={read['train']['loss']} ref={read['train']['loss_ref']} "
-          f"eval_loss={read['train']['eval_loss']}",
+          f"eval_loss={read['train']['eval_loss']}"
+          + ("" if "points" not in read["train"] else
+             f" points={read['train']['points']['points']} "
+             f"points_eval_loss={read['train']['points']['eval_loss']} "
+             f"(dp {read['train']['points']['eval_loss_dp']}) "
+             f"points_loss={read['train']['points']['loss']}"),
           flush=True)
     return 0
 

@@ -11,7 +11,11 @@ explicit:
   and one per data index over the model axis;
 * batch: the global batch's leading axis split over the data axis
   (:func:`shard_batch`); every model rank of a data index holds the same
-  slice;
+  slice.  A stack of K batches for a K-step call keeps K whole and splits
+  B (:func:`shard_stacked_batch`).  :func:`shard_points` also splits the
+  point axis of the clouds over the model axis (the JAX dry run's
+  ``P("data", "model")``); the engine gathers it at the step's entry,
+  where GSPMD inserts its all-gathers;
 * batch norm in train mode: the per-channel sums of x and x^2 and the
   count summed over the data axis, with gradients, before the mean and
   the biased variance; every rank then updates the running statistics
@@ -112,20 +116,48 @@ def make_mesh(n_model: int = 1, n_data: Optional[int] = None,
                 member=rank < n_data * n_model)
 
 
-def shard_batch(mesh: Mesh, batch: Dict) -> Dict:
-    """The rank's slice of the global batch's leading axis, on the mesh's
-    device."""
-    out = {}
-    for k, v in batch.items():
-        v = torch.as_tensor(v)
-        B = v.shape[0]
-        if B % mesh.n_data:
-            raise ValueError(f"batch of {B} ({k}) does not split over "
-                             f"{mesh.n_data} data ranks")
-        b = B // mesh.n_data
-        out[k] = v[mesh.data_index * b:(mesh.data_index + 1) * b].to(
-            mesh.device)
-    return out
+# the point-axis tensors of a batch, (B, N, C)
+POINT_KEYS = ("pc", "intensity", "sn")
+
+
+class PointShards(dict):
+    """A rank's batch whose :data:`POINT_KEYS` hold its model rank's share
+    of the point axis (:func:`shard_points`)."""
+
+
+def _block(v: torch.Tensor, key: str, dim: int, index: int, size: int,
+           what: str, ranks: str) -> torch.Tensor:
+    """Block ``index`` of ``size`` equal blocks of ``v`` along ``dim``."""
+    n = v.shape[dim]
+    if n % size:
+        raise ValueError(f"{what} of {n} ({key}) does not split over "
+                         f"{size} {ranks} ranks")
+    return v.narrow(dim, index * (n // size), n // size)
+
+
+def shard_batch(mesh: Mesh, batch: Dict, dim: int = 0) -> Dict:
+    """The rank's slice of the global batch's axis ``dim`` (the batch
+    axis), contiguous on the mesh's device."""
+    return {k: _block(torch.as_tensor(v), k, dim, mesh.data_index,
+                      mesh.n_data, "batch", "data"
+                      ).to(mesh.device).contiguous()
+            for k, v in batch.items()}
+
+
+def shard_stacked_batch(mesh: Mesh, batches: Dict) -> Dict:
+    """A (K, B, ...) stack of K batches laid out for a K-step call: K
+    whole on every rank, the rank's slice of B."""
+    return shard_batch(mesh, batches, dim=1)
+
+
+def shard_points(mesh: Mesh, batch: Dict) -> PointShards:
+    """:func:`shard_batch`, with the point axis (axis 1) of the
+    :data:`POINT_KEYS` also split over the model ranks."""
+    out = shard_batch(mesh, batch)
+    for k in POINT_KEYS:
+        out[k] = _block(out[k], k, 1, mesh.model_index, mesh.n_model,
+                        "point axis", "model").contiguous()
+    return PointShards(out)
 
 
 def _split_layers(model: nn.Module, n_model: int, min_shard_dim: int
@@ -243,6 +275,23 @@ class ShardedEngine(Engine):
     def place_batch(self, batch: Dict) -> Dict:
         return shard_batch(self.mesh, batch)
 
+    def place_stacked(self, batches: Dict) -> Dict:
+        return shard_stacked_batch(self.mesh, batches)
+
+    def whole_points(self, batch: Dict) -> Dict:
+        """A :class:`PointShards` batch with its point axis gathered over
+        the model ranks (the inputs carry no gradient); any other batch
+        as it is."""
+        if not isinstance(batch, PointShards):
+            return batch
+        m = self.mesh
+        return {k: gather_cat(v, m.model_group, m.model_index, m.n_model,
+                              dim=1) if k in POINT_KEYS else v
+                for k, v in batch.items()}
+
+    def eval_step(self, state, batch: Dict) -> Dict[str, torch.Tensor]:
+        return super().eval_step(state, self.whole_points(batch))
+
     def loss_and_grads(self, state: TrainState, batch: Dict,
                        generator: torch.Generator):
         """The rank's share of the gradient, summed over the data axis:
@@ -251,9 +300,9 @@ class ShardedEngine(Engine):
         parameters' gradients and the running statistics each for itself,
         which a card need not repeat bit for bit (atomic sums in a
         convolution's backward); they take model rank 0's, so the
-        replicas stay equal."""
-        loss, metrics, grads = super().loss_and_grads(state, batch,
-                                                      generator)
+        replicas stay equal.  A point-sharded batch is gathered first."""
+        loss, metrics, grads = super().loss_and_grads(
+            state, self.whole_points(batch), generator)
         grads = _summed(grads, self.mesh.data_group)
         if self.mesh.n_model > 1:
             split = {id(p) for m in state.model.modules()

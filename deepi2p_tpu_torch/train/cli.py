@@ -24,13 +24,24 @@ either ``eval.cli dump`` read).  ``--resume`` restores the latest
 checkpoint and wins over ``--warm-start``; both floor the step to its
 epoch's start, so an interrupted epoch runs again from its beginning.
 
+``--steps-per-dispatch K`` takes K train steps per call
+(:meth:`~.engine.Engine.train_step_scan`, the JAX ``lax.scan``) on a
+stack of K consecutive batches (:func:`stacked`; a ragged tail of fewer
+than K is dropped), and rounds the epoch down to a multiple of K before
+the schedule, the checkpoints' ``keep_period`` and the resume floor read
+it.  ``--ckpt-every`` and ``--log-every`` are checked after each call, so
+a save or a log line comes at the first call boundary at or past them,
+and the log shows the call's last step.  With steps that K divides, a
+run of K-step calls ends at the state of the run of single steps.
+
 ``--device-data`` (``--dataset synthetic`` only) makes every batch on the
 training device (:func:`~..data.synthetic_device.synthetic_batch_device`):
 no loader thread, pinned buffer or host copy.  Train batch ``i`` of epoch
 ``e`` comes from a generator seeded with :func:`device_seed` of ``(seed +
 424242, e, i)``, a fresh scene every step; validation takes the same
 ``max(len(val) // batch_size, 1)`` batches every epoch, seeded with
-``(seed + 31337, i)``.
+``(seed + 31337, i)``.  With K > 1, call ``d`` of an epoch stacks the
+batches of steps ``d*K .. d*K+K-1``, each from its own generator.
 
 Several ranks: under ``torch.distributed.run`` (``RANK``, ``WORLD_SIZE``,
 ``LOCAL_RANK`` in the environment) each rank joins one process group
@@ -42,19 +53,18 @@ axis, the JAX CLI's rule; a rank beyond ``n_data * mesh_model`` takes no
 part and exits 0.  With ``--device-data`` every rank makes the single
 process's global batch from the same seeds and keeps its slice, so the
 losses are the one-rank run's; from a dataset each rank reads its share
-of each batch of the global order.  Rank 0 alone writes checkpoints
+of each batch of the global order.  A K-step call's stack keeps K whole
+and splits B the same way.  Rank 0 alone writes checkpoints
 (the split weights gathered first) and logs.  Without those variables the
 world is this one process.
 
-What is not ported is refused with the ``ROADMAP.md`` item that holds it,
-never ignored: ``--steps-per-dispatch > 1`` (A.9: the JAX scan of K steps
-exists for a remote TPU's dispatch latency; its counterpart here is a
-CUDA graph of K steps); and ``--mesh-model M`` with a world size that M
-does not divide.
+Refused, never ignored: ``--mesh-model M`` with a world size that M does
+not divide.
 """
 from __future__ import annotations
 
 import argparse
+import itertools
 import math
 import os
 import time
@@ -64,7 +74,8 @@ import torch
 
 from .. import config as config_mod
 from ..data import BatchLoader, SyntheticDataset, device_prefetch
-from ..data.synthetic_device import synthetic_batch_device
+from ..data.synthetic_device import (synthetic_batch_device,
+                                     synthetic_stacked_device)
 from ..parallel.mesh import ShardedEngine, make_mesh
 from ..utils.logging import MetricsLogger
 from .checkpoint import CheckpointManager, export_npz, warm_start_npz
@@ -85,9 +96,6 @@ def refusal(args, world: int = 1) -> str:
                 f"is a multiple of it; the world has {world} rank(s)")
     if args.device_data and args.dataset != "synthetic":
         return "--device-data requires --dataset synthetic"
-    if args.steps_per_dispatch > 1:
-        return ("--steps-per-dispatch > 1 is not ported yet: a CUDA graph "
-                "of K steps waits for ROADMAP.md A.9")
     return ""
 
 
@@ -181,7 +189,10 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--ckpt-every", type=int, default=0,
                    help="also checkpoint every N steps (0 = per epoch only)")
     p.add_argument("--steps-per-dispatch", type=int, default=1,
-                   help="refused above 1 (ROADMAP.md A.9)")
+                   help="K train steps per call on a stack of K "
+                        "consecutive batches (the same steps, in the same "
+                        "order, as K single steps); an epoch is rounded "
+                        "down to a multiple of K")
     p.add_argument("--device-data", action="store_true",
                    help="synthetic: make every batch on the training device")
     p.add_argument("--warm-start", default="",
@@ -202,12 +213,38 @@ def device_seed(*parts: int) -> int:
                .generate_state(1)[0])
 
 
-def device_batches(cfg, device, seeds):
+def device_batches(cfg, device, seeds, k: int = 1):
     """One :func:`synthetic_batch_device` batch on ``device`` for each
-    tuple of seed parts in ``seeds``."""
-    for parts in seeds:
-        gen = torch.Generator(device=device).manual_seed(device_seed(*parts))
-        yield synthetic_batch_device(cfg, gen)
+    tuple of seed parts in ``seeds``; with ``k > 1``, one (k, B, ...)
+    stack (:func:`synthetic_stacked_device`) of each k consecutive ones,
+    a ragged tail dropped."""
+    seeds = iter(seeds)
+    while True:
+        group = list(itertools.islice(seeds, k))
+        if len(group) < k:
+            return
+        gens = [torch.Generator(device=device).manual_seed(device_seed(*p))
+                for p in group]
+        yield (synthetic_batch_device(cfg, gens[0]) if k == 1
+               else synthetic_stacked_device(cfg, gens))
+
+
+def stacked(batches, k: int):
+    """Group ``k`` consecutive host batches (dicts of (B, ...) arrays)
+    into one dict of (k, B, ...) arrays; a ragged tail of fewer than ``k``
+    is dropped.  Closing this generator closes ``batches``."""
+    it = iter(batches)
+    try:
+        while True:
+            group = list(itertools.islice(it, k))
+            if len(group) < k:
+                return
+            yield {key: np.stack([g[key] for g in group])
+                   for key in group[0]}
+    finally:
+        close = getattr(it, "close", None)
+        if close is not None:
+            close()
 
 
 def rank_device(device: str) -> torch.device:
@@ -262,9 +299,24 @@ def _train(args, cfg, device, world: int, distributed: bool):
         return None
     if lead and distributed:
         print(f"mesh {mesh.shape} over {world} ranks", flush=True)
+
+    def say(*a, **kw):
+        if lead:
+            print(*a, **kw)
     epochs = args.epochs if args.epochs is not None else cfg.epochs
     train_ds, val_ds = build_datasets(cfg, args)
     steps_per_epoch = max(len(train_ds) // cfg.batch_size, 1)
+    K = max(args.steps_per_dispatch, 1)
+    if steps_per_epoch < K:
+        raise SystemExit(f"--steps-per-dispatch {K} exceeds the epoch's "
+                         f"{steps_per_epoch} steps")
+    if steps_per_epoch % K:
+        # the ragged tail of < K batches is dropped: the schedule's epoch,
+        # keep_period and the resume floor follow the steps that run
+        dropped = steps_per_epoch % K
+        steps_per_epoch -= dropped
+        say(f"steps-per-dispatch {K}: epoch rounded to {steps_per_epoch} "
+            f"steps ({dropped} ragged batches/epoch dropped)")
 
     engine = ShardedEngine(cfg, mesh, steps_per_epoch=steps_per_epoch)
     logger = MetricsLogger(args.log_dir) if lead else None
@@ -277,10 +329,6 @@ def _train(args, cfg, device, world: int, distributed: bool):
     # is laid out on the mesh
     state = Engine.init_state(engine, seed=args.seed)
     start_epoch = 0
-
-    def say(*a, **kw):
-        if lead:
-            print(*a, **kw)
 
     def save(state, metrics=None):
         """Rank 0 writes the single-process form of the state."""
@@ -327,17 +375,25 @@ def _train(args, cfg, device, world: int, distributed: bool):
         if hasattr(train_ds, "set_epoch"):
             train_ds.set_epoch(epoch)
         if args.device_data:
-            stream = map(engine.place_batch, device_batches(
-                cfg, engine.device, ((args.seed + 424242, epoch, i)
-                                     for i in range(steps_per_epoch))))
+            seeds = ((args.seed + 424242, epoch, i)
+                     for i in range(steps_per_epoch))
+            stream = (map(engine.place_batch,
+                          device_batches(cfg, engine.device, seeds))
+                      if K == 1 else map(engine.place_stacked, device_batches(
+                          cfg, engine.device, seeds, K)))
         else:
-            stream = device_prefetch(
-                BatchLoader(train_ds, cfg.batch_size, shuffle=True,
-                            num_workers=args.workers,
-                            seed=args.seed + epoch, shard=shard),
-                engine.device)
+            loader = BatchLoader(train_ds, cfg.batch_size, shuffle=True,
+                                 num_workers=args.workers,
+                                 seed=args.seed + epoch, shard=shard)
+            # a rank's loader reads its share: its stacks are not split
+            stream = device_prefetch(loader if K == 1 else stacked(loader, K),
+                                     engine.device)
         for batch in stream:
-            state, metrics = engine.train_step(state, batch, generator)
+            if K == 1:
+                state, metrics = engine.train_step(state, batch, generator)
+            else:
+                state, metrics = engine.train_step_scan(state, batch,
+                                                        generator)
             step = state.step
             if args.ckpt_every and step - last_ckpt >= args.ckpt_every:
                 last_ckpt = step

@@ -18,6 +18,12 @@ updates it in place and returns it.  One step:
 6. the batch-norm running statistics (updated by the forward itself);
 7. ``metrics["lr"]`` and ``metrics["fine_violations"]``.
 
+:meth:`Engine.train_step_scan` takes K steps in one call over a stacked
+``(K, B, ...)`` batch (the JAX ``lax.scan`` of ``--steps-per-dispatch``):
+a Python loop of the same step on the views ``batches[k]``, drawing from
+one generator in sequence, so a call is K :meth:`~Engine.train_step`
+calls on the same generator.
+
 ``infer``, ``infer_probs`` and ``infer_probs_fine`` take a
 :class:`TrainState` or a bare ``KeypointDetector``, move the batch's
 inputs (numpy arrays or tensors) to the device, run the forward in eval
@@ -169,15 +175,32 @@ class Engine:
         state.step += 1
         return lr
 
+    def _step(self, state: TrainState, batch: Dict,
+              generator: torch.Generator) -> Dict[str, torch.Tensor]:
+        _, metrics, grads = self.loss_and_grads(state, batch, generator)
+        lr = self.apply_gradients(state, grads)
+        metrics["lr"] = torch.tensor(lr, dtype=torch.float32)
+        return metrics
+
     def train_step(self, state: TrainState, batch: Dict,
                    generator: torch.Generator):
         """One training step (module docstring); returns ``(state,
         metrics)``, the metrics detached tensors on the device."""
-        _, metrics, grads = self.loss_and_grads(state, batch, generator)
-        lr = self.apply_gradients(state, grads)
-        metrics["lr"] = torch.tensor(lr, dtype=torch.float32)
+        metrics = self._step(state, batch, generator)
         if self.cfg.is_debug:  # loss-dict echo (multimodal_classifier.py:209)
             print({k: float(v) for k, v in metrics.items()})
+        return state, metrics
+
+    def train_step_scan(self, state: TrainState, batches: Dict,
+                        generator: torch.Generator):
+        """K training steps in one call; every value of ``batches`` is
+        (K, B, ...), and trip k trains on the views ``batches[key][k]``.
+        Returns ``(state, metrics)``: the last trip's metrics, with its
+        learning rate; ``state.step`` grows by K."""
+        K = len(next(iter(batches.values())))
+        for k in range(K):
+            metrics = self._step(state, {key: v[k] for key, v in
+                                         batches.items()}, generator)
         return state, metrics
 
     @torch.no_grad()

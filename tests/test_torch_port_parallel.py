@@ -14,7 +14,10 @@ package:
   (1e-5) in f32, and within it of the JAX step's;
 * 4 ranks (2 x 2, TP): wide Linears split, a finite step, the train and
   eval steps' metrics as at 2 ranks, the float64 gradient within 1e-8 of
-  one rank's;
+  one rank's; then the JAX dry run's point-axis sharding (the clouds'
+  point axis split over the model ranks too): the eval loss equal to the
+  DP layout's (JAX holds it within 1e-3), a train step from it to a
+  finite loss, parameters bitwise equal across ranks;
 * ``make_sharded_registration`` at 1, 2 and 4 ranks: bitwise equal inits,
   and poses and costs that match the JAX ``solve_frustum_batch`` fed the
   same inits, at the JAX dry run's bounds;
@@ -116,6 +119,22 @@ def test_tp_four_ranks_splits_and_is_the_one_rank_gradient(runs):
     assert np.isfinite(read["loss"])
     # the split leaves differ between model ranks before the gather
     assert all(r["train"]["n_split"] == read["n_split"] for r in results)
+
+
+def test_tp_four_ranks_point_sharded_eval_and_step(runs):
+    """``__graft_entry__.py:120-146`` on the 2 x 2 layout: each rank holds
+    1 of the batch's 2 samples and 128 of its 256 points; the gathered
+    forward is the DP layout's computation, so its eval loss is equal;
+    the step from it is finite and leaves the replicas equal."""
+    assert all("points" not in r["train"] for r in runs[2])
+    pts = [r["train"]["points"] for r in runs[4]]
+    read = dryrun.check_points(pts)
+    cfg = config.tiny()
+    assert all(p["points"] == (cfg.batch_size // 2, cfg.input_pt_num // 2,
+                               3) for p in pts)
+    assert read["eval_rel_diff"] == 0.0
+    assert all(p["eval_loss"] == p["eval_loss_dp"] for p in pts)
+    assert np.isfinite(read["loss"])
 
 
 @pytest.mark.parametrize("mode", ["2d", "6dof"])

@@ -137,11 +137,11 @@ def test_scene_distribution_parity(cfg):
 
 
 def test_stacked_and_freshness(cfg):
-    st = synthetic_stacked_device(cfg, gen(2), 3, batch_size=2)
+    st = synthetic_stacked_device(cfg, [gen(2)] * 3, batch_size=2)
     assert tuple(st["pc"].shape) == (3, 2, cfg.input_pt_num, 3)
     assert tuple(st["img"].shape) == (3, 2, cfg.img_H, cfg.img_W, 3)
     assert not torch.allclose(st["pc"][0], st["pc"][1])
-    other = synthetic_stacked_device(cfg, gen(9), 3, batch_size=2)
+    other = synthetic_stacked_device(cfg, [gen(9)] * 3, batch_size=2)
     assert not torch.allclose(st["pc"], other["pc"])
 
 

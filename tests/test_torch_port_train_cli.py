@@ -1,8 +1,9 @@
 """The port's trainer on the CPU: the shuffled loader and the fresh-scene
 dataset against the JAX package's, ``python -m
 deepi2p_tpu_torch.train.cli --dataset synthetic`` (tiny preset) training,
-validating, checkpointing and resuming, each flag it does not support
-refused with its ``ROADMAP.md`` item, its ``latest.npz`` read by the
+validating, checkpointing and resuming, a ``--mesh-model`` the world
+cannot hold refused, K steps per call (``--steps-per-dispatch``; more in
+``test_torch_port_train_scan_cli.py``), its ``latest.npz`` read by the
 port's ``eval.cli dump``, the ``MMClassifier`` facade (as
 ``tests/test_classifier_facade.py`` drives the JAX one) and the metrics
 logger."""
@@ -113,19 +114,49 @@ def test_cli_resume_floors_to_the_epoch(tmp_path, capsys):
 @pytest.mark.parametrize("flags,says", [
     (("--mesh-model", "4"), "--mesh-model 4 needs a world size that is a "
                             "multiple of it; the world has 1 rank(s)"),
-    (("--steps-per-dispatch", "2"), "ROADMAP.md A.9"),
     (("--mesh-model", "2"), "--mesh-model 2 needs a world size that is a "
                             "multiple of it; the world has 1 rank(s)"),
-    (("--device-data", "--steps-per-dispatch", "2"), "ROADMAP.md A.9"),
-    (("--steps-per-dispatch", "4"), "ROADMAP.md A.9"),
 ])
 def test_cli_refuses_what_is_not_ported(tmp_path, flags, says):
     """What the port refuses: a ``--mesh-model`` the world size is not a
-    multiple of (one rank here), and a K-step dispatch (A.9)."""
+    multiple of (one rank here)."""
     with pytest.raises(SystemExit) as e:
         _run(tmp_path, *flags)
     assert says in str(e.value.code)
     assert not (tmp_path / "ck").exists()
+
+
+@pytest.mark.parametrize("flags,calls", [
+    (("--steps-per-dispatch", "2"), 2),
+    (("--device-data", "--steps-per-dispatch", "2"), 2),
+    (("--steps-per-dispatch", "4"), 1),
+])
+def test_cli_takes_k_steps_per_call(tmp_path, monkeypatch, flags, calls):
+    """A K-step dispatch, once refused, runs at the JAX
+    ``test_cli.py::test_train_cli_steps_per_dispatch`` settings (8
+    samples, batches of 2, one worker): ``calls`` calls of
+    ``train_step_scan`` on (K, 2, ...) stacks, no single step, step 4, a
+    log line per call."""
+    from deepi2p_tpu_torch.train.engine import Engine
+    seen = []
+    scan = Engine.train_step_scan
+
+    def recorded(self, state, batches, gen):
+        seen.append(tuple(batches["pc"].shape[:2]))
+        return scan(self, state, batches, gen)
+
+    def refuse(*a, **k):
+        raise AssertionError("a single step in a K-step run")
+    monkeypatch.setattr(Engine, "train_step_scan", recorded)
+    monkeypatch.setattr(Engine, "train_step", refuse)
+    state = _run(tmp_path, *flags, "--synthetic-len", "8", "--val-len", "2",
+                 "--epochs", "1", "--workers", "1")
+    K = 4 // calls
+    assert state.step == 4 and seen == [(K, 2)] * calls
+    recs = [json.loads(line) for line in
+            open(tmp_path / "log" / "metrics.jsonl")]
+    assert [(r["tag"], r["step"]) for r in recs] == [
+        *(("train", K * (i + 1)) for i in range(calls)), ("val", 4)]
 
 
 def test_classifier_facade(tmp_path):

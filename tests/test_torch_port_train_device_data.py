@@ -2,11 +2,13 @@
 --device-data`` on the CPU (``config.tiny``): batches made by
 ``synthetic_batch_device`` from generators seeded per (epoch, step), none
 through the ``BatchLoader``; finite losses; the same validation batches
-every epoch; and the refusals that remain."""
+every epoch; K steps per call on stacks of those batches; and the
+refusals that remain."""
 import numpy as np
 import pytest
 import torch
 
+from deepi2p_tpu_torch import config
 from deepi2p_tpu_torch.train import cli
 from deepi2p_tpu_torch.train.engine import Engine
 from test_torch_port_train_parts import one_torch_thread  # noqa: F401
@@ -90,8 +92,37 @@ def test_device_batches_are_the_seeded_generators():
         assert torch.equal(got[0][k], want[k]), k
 
 
+def test_device_data_k_steps_per_call(tmp_path, monkeypatch):
+    """``--steps-per-dispatch 2``, once refused: one call on a (2, B, ...)
+    stack of the two batches a K = 1 epoch makes, from the same seeds."""
+    made, seen = [], []
+    batches = cli.device_batches
+
+    def recording(cfg, device, seeds, k=1):
+        seeds = list(seeds)
+        made.append((seeds, k))
+        yield from batches(cfg, device, seeds, k)
+
+    scan = Engine.train_step_scan
+
+    def scan_rec(self, state, stack, gen):
+        seen.append({k: v.clone() for k, v in stack.items()})
+        return scan(self, state, stack, gen)
+    monkeypatch.setattr(cli, "device_batches", recording)
+    monkeypatch.setattr(Engine, "train_step_scan", scan_rec)
+    state = _run(tmp_path, "--epochs", "1", "--seed", "3",
+                 "--steps-per-dispatch", "2")
+    assert state.step == 2
+    assert made == [([(424245, 0, 0), (424245, 0, 1)], 2),
+                    ([(31340, 0), (31340, 1)], 1)]
+    assert len(seen) == 1 and tuple(seen[0]["pc"].shape[:2]) == (2, 2)
+    for i, step in enumerate(batches(config.tiny(), torch.device("cpu"),
+                                     made[0][0])):
+        for k, v in step.items():
+            assert torch.equal(seen[0][k][i], v), k
+
+
 @pytest.mark.parametrize("flags,message", [
-    (("--steps-per-dispatch", "2"), "ROADMAP.md A.9"),
     (("--mesh-model", "2"), "--mesh-model 2 needs a world size that is a "
                             "multiple of it"),
     (("--dataset", "kitti", "--dataroot", "/nonexistent"),
