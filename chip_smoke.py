@@ -1037,6 +1037,7 @@ def icp_profile(torch, source, target):
     determinant, the gathers and the rest."""
     from torch.autograd import DeviceType
     from deepi2p_tpu_torch.register.icp import icp_batch
+    from deepi2p_tpu_torch.utils.profiling import is_span_range
 
     def run():
         return icp_batch(source, target, torch.Generator().manual_seed(0),
@@ -1057,7 +1058,8 @@ def icp_profile(torch, source, target):
         wall_prof = time.perf_counter() - t
 
     events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+              if e.device_type == DeviceType.CUDA and dev_us(e) > 0
+              and not is_span_range(e)]
     if not events:
         log(f"icp batch: wall {wall:.4f} s; the trace holds no device time "
             f"(split not measured)")

@@ -23,6 +23,7 @@ from ..device import resolve_device
 from ..ops.dtypes import widen
 from ..ops.interpolate import interpolate_inverse_dist
 from ..ops.knn import knn
+from ..utils.profiling import span
 from .img_encoder import ImageEncoder
 from .layers import PointNetMLP, init_params_
 from .pc_encoder import PCEncoder
@@ -68,13 +69,29 @@ class KeypointDetector(nn.Module):
         ``generator`` draws the head's dropout masks in train mode.
         """
         cfg, dt = self.cfg, self.dtype
+        with span("detector.pc_encoder"):
+            enc = self.pc_encoder(pc.to(dt), intensity.to(dt), sn.to(dt),
+                                  node_a.to(dt), node_b.to(dt))
+        with span("detector.img_encoder"):
+            s16, s32, img_global = self.img_encoder(img.to(dt))
+        with span("detector.fusion"):
+            interp_pa, interp_pb = self._fusion(pc, node_a, node_b, enc, s16,
+                                                s32, img_global)
+        with span("detector.head"):
+            head_in = torch.cat([interp_pa, interp_pb, enc.first_pn_out,
+                                 enc.second_pn_out], dim=-1)
+            scores = widen(self.per_point_pn(head_in, generator))
+        if cfg.is_fine_resolution:
+            return scores[:, :, :2], scores[:, :, 2:]
+        return scores
+
+    def _fusion(self, pc, node_a, node_b, enc, s16, s32, img_global):
+        """Both attentions over the image maps, the three interpolations
+        and their kNN: -> (node_a -> points, node_b -> points) features."""
+        cfg, dt = self.cfg, self.dtype
         B = pc.shape[0]
         Ma, Mb = node_a.shape[1], node_b.shape[1]
         L = cfg.num_fine_classes
-
-        enc = self.pc_encoder(pc.to(dt), intensity.to(dt), sn.to(dt),
-                              node_a.to(dt), node_b.to(dt))
-        s16, s32, img_global = self.img_encoder(img.to(dt))
         s16 = s16.reshape(B, -1, s16.shape[-1])          # (B, 4L, 256)
         s32 = s32.reshape(B, -1, s32.shape[-1])          # (B, L, 512)
 
@@ -111,13 +128,7 @@ class KeypointDetector(nn.Module):
         interp_pa = interpolate_inverse_dist(pc.to(dt), node_a.to(dt),
                                              up_node_a, enc.min_k_idx,
                                              dist2=enc.min_k_d2)
-
-        head_in = torch.cat([interp_pa, interp_pb, enc.first_pn_out,
-                             enc.second_pn_out], dim=-1)
-        scores = widen(self.per_point_pn(head_in, generator))
-        if cfg.is_fine_resolution:
-            return scores[:, :, :2], scores[:, :, 2:]
-        return scores
+        return interp_pa, interp_pb
 
 
 def build_detector(cfg: Config, *, device="cuda", seed: int = 0

@@ -20,6 +20,7 @@ from . import config
 from .data import batch_to_torch, synthetic_batch
 from .models import build_detector
 from .register import solve_frustum_batch
+from .utils import profiling
 
 KEYS = ("pc", "intensity", "sn", "node_a", "node_b", "img")
 STEPS = 2        # profiled steps, after one warm-up step
@@ -82,7 +83,8 @@ def main() -> None:
           f"{sum(solve_ms) / len(solve_ms):.3f} ms per step (CUDA events)")
     # kernel rows only (the CPU ops' rows repeat their kernels' time)
     events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
+              if e.device_type == DeviceType.CUDA and _device_us(e) > 0
+              and not profiling.is_span_range(e)]
     busy_ms = sum(_device_us(e) for e in events) / 1e3
     if not events:
         print("profiled: the trace holds no device time (not measured)")

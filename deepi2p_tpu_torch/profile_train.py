@@ -4,13 +4,12 @@
 
 Runs the port's train step at the committed KITTI-shaped run
 (``config.kitti`` street scenes, N=8192, 128+128 nodes, B=8, 160x512,
-bf16 activations, seeded weights) and prints, after a warm-up: the wall
-time per step; the device time (CUDA events) of the train-mode forward
-with the loss (grad enabled, so it records the graph and saves the
-activations as the step's forward does; the graph is then dropped), of
-the whole step's forward and backward, and of the Adam update; the
-device's busy share of a profiled window of steps; and the kernels with
-the most device time.  Needs a CUDA device.
+bf16 activations, seeded weights) and prints, for a profiled window of
+steps after a warm-up: the program's span table
+(``utils/profiling.py::span_table``: per span, calls, host ms and device
+ms, whole and less the child spans, per step), the wall time per step,
+the device's busy share, and the kernels with the most device time.
+Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -23,20 +22,11 @@ from . import config
 from .data import batch_to_torch, synthetic_batch
 from .profile_slice import _device_us
 from .train.engine import Engine
+from .utils import profiling
 
 WARMUP = 2
 STEPS = 3        # timed and profiled steps
 TOP = 25         # kernels listed
-
-
-def _events_ms(fn) -> float:
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end)
 
 
 def main() -> None:
@@ -49,18 +39,7 @@ def main() -> None:
     for _ in range(WARMUP):
         engine.train_step(state, batch, gen)
     torch.cuda.synchronize()
-
-    def forward():
-        out = state.model.train()(*engine._inputs(batch), generator=gen)
-        engine._loss(out, batch)
-
-    fwd, fwd_bwd, adam = [], [], []
-    for _ in range(STEPS):
-        fwd.append(_events_ms(forward))
-        grads = []
-        fwd_bwd.append(_events_ms(lambda: grads.extend(
-            engine.loss_and_grads(state, batch, gen)[2])))
-        adam.append(_events_ms(lambda: engine.apply_gradients(state, grads)))
+    profiling.reset()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -70,15 +49,19 @@ def main() -> None:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
-    mean = lambda xs: sum(xs) / len(xs)  # noqa: E731
     print(f"card {torch.cuda.get_device_name(0)}; train step B="
           f"{cfg.batch_size} N={cfg.input_pt_num} {cfg.img_H}x{cfg.img_W} "
           f"{cfg.compute_dtype}")
-    print(f"train-mode forward + loss (grad on) {mean(fwd):.3f} ms, "
-          f"forward + backward {mean(fwd_bwd):.3f} ms, Adam "
-          f"{mean(adam):.3f} ms per step (CUDA events)")
+    print(f"{'calls':>6} {'host ms':>9} {'device ms':>10} {'self ms':>9}  "
+          "span (per step)")
+    for name, s in profiling.span_table().items():
+        dev = ("not measured" if s.device_ms is None else
+               f"{s.device_ms / STEPS:10.3f} {s.self_device_ms / STEPS:9.3f}")
+        print(f"{s.calls / STEPS:6.0f} {s.host_ms / STEPS:9.3f} {dev}  "
+              f"{name}")
     events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
+              if e.device_type == DeviceType.CUDA and _device_us(e) > 0
+              and not profiling.is_span_range(e)]
     if not events:
         print("profiled: the trace holds no device time (not measured)")
         return

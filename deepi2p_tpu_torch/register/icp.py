@@ -31,6 +31,7 @@ import torch
 
 from ..device import resolve_device
 from ..ops.knn import nn1
+from ..utils.profiling import span
 
 
 class ICPResult(NamedTuple):
@@ -122,24 +123,28 @@ def _icp_solve(source, target, P_inits, thr_sched, threshold: float):
     R, t = P_inits[..., :3, :3], P_inits[..., :3, 3]
 
     def nearest(R, t):
-        moved = _transform(src, R, t)                      # (B, I, N, 3)
-        d2m, nn = nn1(moved.reshape(B * I, N, 3), target)
-        return d2m.reshape(B, I, N), nn.reshape(B, I, N)
+        with span("icp.nn1"):
+            moved = _transform(src, R, t)                  # (B, I, N, 3)
+            d2m, nn = nn1(moved.reshape(B * I, N, 3), target)
+            return d2m.reshape(B, I, N), nn.reshape(B, I, N)
 
     for thr in thr_sched.tolist():
         d2m, nn = nearest(R, t)
-        w = (torch.sqrt(d2m) < thr).to(torch.float32)
-        dst = torch.gather(tgt, 2, nn.long()[..., None].expand(-1, -1, -1, 3))
-        Rn, tn = _kabsch(src, dst, w)
-        ok = torch.sum(w, dim=-1) >= 3
-        R = torch.where(ok[..., None, None], Rn, R)
-        t = torch.where(ok[..., None], tn, t)
-    d2m, _ = nearest(R, t)
-    fitness = torch.mean((d2m < threshold ** 2).to(torch.float32), dim=-1)
-    P = torch.zeros(B, I, 4, 4, dtype=torch.float32, device=source.device)
-    P[..., :3, :3] = R
-    P[..., :3, 3] = t
-    P[..., 3, 3] = 1.0
+        with span("icp.update"):
+            w = (torch.sqrt(d2m) < thr).to(torch.float32)
+            dst = torch.gather(tgt, 2,
+                               nn.long()[..., None].expand(-1, -1, -1, 3))
+            Rn, tn = _kabsch(src, dst, w)
+            ok = torch.sum(w, dim=-1) >= 3
+            R = torch.where(ok[..., None, None], Rn, R)
+            t = torch.where(ok[..., None], tn, t)
+    with span("icp.fitness"):
+        d2m, _ = nearest(R, t)
+        fitness = torch.mean((d2m < threshold ** 2).to(torch.float32), dim=-1)
+        P = torch.zeros(B, I, 4, 4, dtype=torch.float32, device=source.device)
+        P[..., :3, :3] = R
+        P[..., :3, 3] = t
+        P[..., 3, 3] = 1.0
     return P, fitness
 
 
@@ -268,17 +273,23 @@ def icp_batch(source, target, generator: torch.Generator, *,
     Returns:
       ICPResult(P (B, 4, 4), fitness (B,)).
     """
-    dev = resolve_device(device)
-    source = torch.as_tensor(source).to(dev, torch.float32)
-    target = torch.as_tensor(target).to(dev, torch.float32)
-    B = source.shape[0]
-    n_round = -(-n_inits // init_chunk) * init_chunk
-    P_inits = _draw_inits(generator, (B, n_round), t_amplitude, ry_amplitude)
-    if P_seed is not None:
-        n_seed = int(n_round * seed_frac)
-        seeded = _seeded_inits(generator, n_seed, torch.as_tensor(P_seed))
-        P_inits = torch.cat([seeded, P_inits[:, n_seed:]], dim=1)
-    P, fit = _icp_solve(source, target, P_inits.to(dev),
-                        _thr_schedule(threshold, coarse_threshold, max_iter),
-                        threshold)
-    return _pick_best(P, fit)
+    with span("icp.batch"):                # its id: a call count
+        dev = resolve_device(device)
+        source = torch.as_tensor(source).to(dev, torch.float32)
+        target = torch.as_tensor(target).to(dev, torch.float32)
+        B = source.shape[0]
+        n_round = -(-n_inits // init_chunk) * init_chunk
+        with span("icp.inits"):
+            P_inits = _draw_inits(generator, (B, n_round), t_amplitude,
+                                  ry_amplitude)
+            if P_seed is not None:
+                n_seed = int(n_round * seed_frac)
+                seeded = _seeded_inits(generator, n_seed,
+                                       torch.as_tensor(P_seed))
+                P_inits = torch.cat([seeded, P_inits[:, n_seed:]], dim=1)
+            P_inits = P_inits.to(dev)
+        P, fit = _icp_solve(
+            source, target, P_inits,
+            _thr_schedule(threshold, coarse_threshold, max_iter), threshold)
+        with span("icp.pick"):
+            return _pick_best(P, fit)

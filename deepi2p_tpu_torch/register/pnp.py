@@ -39,6 +39,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..utils.profiling import span
 from .frustum import rodrigues, skew
 
 THRESH_STEPS = (1.5, 1.25, 1.0)   # LO polish thresholds, x reproj_thresh
@@ -267,7 +268,7 @@ def _polish(R, t, X, uv, K, mask, thresh: float):
     does not lose inliers at ``thresh``.  -> (R, t, inliers)."""
     for step in THRESH_STEPS:
         err = _reproj_err(R, t, X, uv, K)
-        with torch.profiler.record_function("pnp.gn"):
+        with span("pnp.gn"):
             R_n, t_n = _gn_refine(R, t, X, uv, K,
                                   (err < step * thresh).to(torch.float32)
                                   * mask)
@@ -378,23 +379,23 @@ def _solve(pc, coarse_pred, fine_pred, K, generator, W_fine, n_hypotheses,
     if subset is None:
         if generator is None:
             raise ValueError("need a generator when subset is not given")
-        with torch.profiler.record_function("pnp.draw"):
+        with span("pnp.draw"):
             subset = draw_subsets(generator, mask, n_hypotheses, min_set)
     subset = torch.as_tensor(subset, device=dev).to(torch.int64)  # (B, H, S)
 
     X, uvb, Kb = pc[:, None], uv[:, None], K_fine[:, None]
-    with torch.profiler.record_function("pnp.dlt"):
+    with span("pnp.dlt"):
         flat = subset.reshape(B, -1)
         Rs, ts = _dlt_pose(_take(pc, flat).reshape(*subset.shape, 3),
                            _take(uv, flat).reshape(*subset.shape, 2),
                            K_inv[:, None])
-    with torch.profiler.record_function("pnp.reproj"):
+    with span("pnp.reproj"):
         n_inl = _count(_reproj_err(Rs, ts, X, uvb, Kb), reproj_thresh,
                        mask[:, None])                         # (B, Hyp)
     # the best lo_candidates by inliers, ties to the lower index (top_k's)
     top = torch.sort(n_inl, dim=-1, descending=True,
                      stable=True).indices[:, :lo_candidates]
-    with torch.profiler.record_function("pnp.polish"):
+    with span("pnp.polish"):
         R_c, t_c, inl_c = _polish(_take(Rs, top), _take(ts, top), X, uvb,
                                   Kb, mask[:, None], reproj_thresh)
     ci = torch.argmax(inl_c, dim=-1, keepdim=True)

@@ -40,6 +40,7 @@ from ..config import Config
 from ..device import resolve_device
 from ..models.detector import INPUT_KEYS, KeypointDetector, build_detector
 from ..ops.projection import generate_labels
+from ..utils.profiling import span
 from .loss import classification_loss
 
 ADAM_B1 = 0.9
@@ -159,10 +160,13 @@ class Engine:
         ``model.parameters()`` order).  The forward updates the running
         statistics; the parameters and moments are left as they were."""
         model = state.model.train()
-        out = model(*self._inputs(batch), generator=generator)
-        loss, metrics = self._loss(out, batch)
+        with span("train.forward"):
+            out = model(*self._inputs(batch), generator=generator)
+        with span("train.loss"):
+            loss, metrics = self._loss(out, batch)
         params = list(model.parameters())
-        grads = torch.autograd.grad(loss, params)
+        with span("train.backward"):
+            grads = torch.autograd.grad(loss, params)
         return loss.detach(), metrics, list(grads)
 
     def apply_gradients(self, state: TrainState,
@@ -177,9 +181,11 @@ class Engine:
 
     def _step(self, state: TrainState, batch: Dict,
               generator: torch.Generator) -> Dict[str, torch.Tensor]:
-        _, metrics, grads = self.loss_and_grads(state, batch, generator)
-        lr = self.apply_gradients(state, grads)
-        metrics["lr"] = torch.tensor(lr, dtype=torch.float32)
+        with span("train.step", step=state.step):
+            _, metrics, grads = self.loss_and_grads(state, batch, generator)
+            with span("train.adam"):
+                lr = self.apply_gradients(state, grads)
+            metrics["lr"] = torch.tensor(lr, dtype=torch.float32)
         return metrics
 
     def train_step(self, state: TrainState, batch: Dict,

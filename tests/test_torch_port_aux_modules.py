@@ -253,14 +253,19 @@ def test_losses_match_jax(rng):
 
 
 def test_profiling(tmp_path):
-    timer = profiling.StepTimer()
-    for _ in range(3):
-        with timer.time("step"):
-            torch.ones(64, 64) @ torch.ones(64, 64)
-    assert len(timer.history["step"]) == 3 and timer.mean("step") > 0.0
+    profiling.reset()
+    with profiling.span("port_region"):
+        torch.ones(8).sum()
+    assert profiling.span_table() == {}
     with profiling.trace(str(tmp_path)) as prof:
-        with profiling.annotate("port_region"):
-            torch.ones(8).sum()
+        with profiling.span("port_region", step=3):
+            with profiling.span("inner"):
+                torch.ones(8).sum()
     assert os.path.dirname(prof.trace_path) == str(tmp_path)
     events = json.load(open(prof.trace_path))["traceEvents"]
     assert any(e.get("name") == "port_region" for e in events)
+    table = profiling.span_table()
+    assert table["port_region"].calls == table["inner"].tops == 1
+    assert table["inner"].device_ms is None
+    profiling.reset()
+    assert profiling.span_table() == {}
