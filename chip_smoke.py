@@ -111,7 +111,15 @@ announced as ``phase=<name> start|done t=<seconds>``:
     and ``sample_inits`` from one seeded CPU generator must give equal
     inits with ``ang`` on the card and on the CPU.
 
-15. ``train``: the training path, with grad on, at the committed
+15. ``norm``, with grad on: the norm kernel pair (``ops/norm_cuda.py``)
+    against its plain version (``Norm.plain`` + ReLU, autograd) at the
+    KITTI train step's shapes at B=64 (``profile_norm.shapes``: the
+    head's, the point tower's, the ResNet stem's channels-last and NCHW):
+    y and the running statistics bitwise, dx within 1e-2, dweight and
+    dbias within 1e-3 (norm-wise, relative), two calls bitwise equal, 6
+    launches a layer; its forward and backward device times beside its
+    bound, the plain version's and ``batch_norm``'s.
+    Then ``train``: the training path, with grad on, at the committed
     KITTI-shaped run (``config.kitti`` street scenes, N=8192, 128+128
     nodes, B=8, 160x512, bf16 activations, f32 parameters, seeded
     weights): the kNN kernel against its plain version at the training
@@ -292,6 +300,13 @@ TRAIN_SCAN_K = 4         # train_step_scan: K steps per call
 TRAIN_SCAN_RUNS = 3      # runs of K single steps from one state
 TRAIN_SCAN_CALLS = 3     # timed K-step calls
 TRAIN_LOSS_RTOL = 1e-5
+# the norm phase: the kernel pair against its plain version at the
+# B = 64 train step's shapes, bf16: y and the running statistics bitwise
+# (the same statistics, the same operations); the gradients norm-wise
+# relative (the closed form rounds at other points than autograd's f32
+# chain, then both round dx to bf16, 2^-8; the sums are f32)
+NORM_BATCH = 64
+NORM_RTOL = dict(dx=1e-2, dweight=1e-3, dbias=1e-3)
 TRAIN_STATS_RTOL = 1e-5
 # the f32 step's whole gradient against the float64 one: a gross check
 # only, since f32 does not resolve this network's gradient leaf by leaf
@@ -2040,6 +2055,36 @@ def scan_check(torch, engine, state0, batches) -> dict:
                 loss=float(metrics["loss"]))
 
 
+def norm_phase(torch) -> dict:
+    """The norm kernel pair at the B = 64 train step's shapes: against
+    its plain version, bitwise repeatable, its times."""
+    from deepi2p_tpu_torch import profile_norm
+    from deepi2p_tpu_torch.ops.norm_cuda import norm_cuda
+
+    rows = {}
+    for name, (shape, ch, cl) in profile_norm.shapes(NORM_BATCH).items():
+        before = norm_cuda.launches
+        gaps = profile_norm.compare(shape, ch, cl)
+        launches = norm_cuda.launches - before
+        log(f"norm {name} {shape}{' channels-last' if cl else ''}: "
+            + json.dumps(gaps) + f", {launches} launches")
+        bad = {k: v for k, v in gaps.items()
+               if k in NORM_RTOL and not v < NORM_RTOL[k]}
+        exact = all(gaps[k] == 0 for k in ("y", "running_mean",
+                                           "running_var"))
+        require(not bad and exact and gaps["bitwise_repeat"]
+                and launches == 2 * 6,
+                f"norm {name}: kernel against plain version {bad}, y and "
+                f"running statistics bitwise {exact}, repeat bitwise "
+                f"{gaps['bitwise_repeat']}, {launches} launches for two "
+                "kernel forward and backward calls")
+        t = profile_norm.times(shape, ch, cl)
+        log(f"norm {name}: " + json.dumps(t))
+        rows[name] = dict(**gaps, **t)
+        torch.cuda.empty_cache()
+    return rows
+
+
 def train_phase(torch):
     """The training path at the committed KITTI-shaped run: timed bf16
     steps, kNN launches per step, the kNN at the training forward's four
@@ -2047,7 +2092,9 @@ def train_phase(torch):
     batch, checkpoints, and the card against the CPU."""
     from deepi2p_tpu_torch import config
     from deepi2p_tpu_torch.data import batch_to_torch, synthetic_batch
+    from deepi2p_tpu_torch.models.layers import Norm
     from deepi2p_tpu_torch.ops.knn_cuda import knn_cuda
+    from deepi2p_tpu_torch.ops.norm_cuda import norm_cuda
     from deepi2p_tpu_torch.profile_knn import forward_calls
     from deepi2p_tpu_torch.train.checkpoint import (CheckpointManager,
                                                     export_npz,
@@ -2090,6 +2137,7 @@ def train_phase(torch):
         + ("; ".join(scan["nondet"]) or "none"))
     torch.cuda.reset_peak_memory_stats()
     knn_cuda.launches = 0
+    norm_cuda.launches = 0
     losses = []
     t = time.perf_counter()
     for i in range(TRAIN_TIMED):
@@ -2098,6 +2146,11 @@ def train_phase(torch):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t
     launches = knn_cuda.launches
+    norms = sum(isinstance(m, Norm) for m in state.model.modules())
+    norm_per_step = norm_cuda.launches // TRAIN_TIMED
+    require(norm_cuda.launches == 6 * norms * TRAIN_TIMED,
+            f"train: {norm_cuda.launches} norm launches in {TRAIN_TIMED} "
+            f"steps, not 6 for each of the model's {norms} norms")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     losses = [float(x) for x in losses]
     require(all(math.isfinite(x) for x in losses),
@@ -2110,7 +2163,8 @@ def train_phase(torch):
         f"{cfg.img_H}x{cfg.img_W}, after {TRAIN_WARMUP} warm-up): "
         f"{ms:.3f} ms/step, {B * TRAIN_TIMED / dt:.2f} samples/s, peak "
         f"memory {peak:.3f} GiB, kNN launches {launches} "
-        f"({launches // TRAIN_TIMED} per step); losses "
+        f"({launches // TRAIN_TIMED} per step), norm launches "
+        f"{norm_per_step} per step ({norms} norms); losses "
         + " ".join(f"{x:.4f}" for x in losses))
 
     stack = {k: torch.stack([batches[i % 2][k] for i in range(K)])
@@ -2169,6 +2223,7 @@ def train_phase(torch):
     train_reference(torch, config)
     return dict(ms=ms, samples_s=B * TRAIN_TIMED / dt, peak_gib=peak,
                 launches_per_step=launches // TRAIN_TIMED, knn_err=err,
+                norm_launches_per_step=norm_per_step,
                 ms_scan=ms_scan, scan_launches_per_call=scan["launches"],
                 scan_bitwise=scan["bitwise"])
 
@@ -3860,6 +3915,8 @@ def main() -> int:
             serve_phase(torch, eval_cfg, eval_raw)
         with phase("reference"):
             reference_phase(torch)
+    with torch.enable_grad(), phase("norm"):
+        norm_row = norm_phase(torch)
     with torch.enable_grad(), phase("train"):
         train = train_phase(torch)
     with torch.enable_grad(), phase("data"):
@@ -3906,6 +3963,10 @@ def main() -> int:
              **{**nn1_row, "max_abs_err": max(nn1_row["max_abs_err"],
                                               depth["nn1_err"])}),
     ]
+    kernels.append(dict(
+        name="norm", route="cuda", source="deepi2p_tpu_torch/csrc/norm.cu",
+        replaces=None, train_launches_per_step=train["norm_launches_per_step"],
+        shapes=norm_row))
     log("kernels=" + json.dumps([k["name"] for k in kernels]))
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -48,6 +48,8 @@ BUILD_TIMEOUT_S = 300
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_D = ctypes.c_double
+_L = ctypes.c_longlong
 # C entry points: name -> argument types (restype is int, the CUDA error)
 SIGNATURES = {
     # q, db, d2, idx, B, N, M, D, k, stream
@@ -72,6 +74,19 @@ SIGNATURES = {
     # D, M, out (3 ints): the current card's SMs, the most shared memory
     # of one block, resident 1-NN blocks per SM for that database
     "nn1_limits": [_I, _I, _P],
+    # pass (0 apply, 1 gradient sums, 2 dx), dtype (0 bf16, 1 f32, 2 f64),
+    # x, dy, out, stats (mean, rstd, mul), bias, coef, partials, relu,
+    # G, O, C, I, P, vec, tx, stream
+    "norm_pass": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _L, _I, _L,
+                  _I, _I, _I, _P],
+    # dtype, partials, P, GC, count, keep, sums, coef, stream
+    "norm_finalize_bwd": [_I, _P, _I, _I, _D, _P, _P, _P, _P],
+    # dtype, x, xf (null for f32, f64), xsq, n, vec, blocks, stream
+    "norm_widen_square": [_I, _P, _P, _P, _L, _I, _I, _P],
+    # dtype, mean, ex2, weight, running mean, running var, stats, G, C,
+    # eps, decay, train, stream
+    "norm_channel_stats": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _D, _D, _I,
+                           _P],
 }
 
 

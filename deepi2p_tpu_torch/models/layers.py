@@ -23,6 +23,10 @@ per-channel sums over the ranks of the batch, ``PNLayer.batch_rows``
 makes dropout draw the whole batch's mask and keep the rank's rows, and
 ``PNLayer.tp`` computes a Linear whose output channels are split over
 ranks and gathers them.
+
+On the card ``Norm`` runs one hand-written kernel pair, forward and
+backward, with the ReLU that follows it where there is one
+(``ops/norm_cuda.py``); on the CPU its tensor code, :meth:`Norm.plain`.
 """
 from __future__ import annotations
 
@@ -34,6 +38,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.dtypes import widen
+from ..ops.norm_cuda import norm_cuda
 
 ACTIVATIONS: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
     "relu": F.relu,
@@ -77,35 +82,67 @@ class Norm(nn.Module):
             self.register_buffer("running_mean", torch.zeros(channels))
             self.register_buffer("running_var", torch.ones(channels))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, relu: bool = False) -> torch.Tensor:
+        """The norm of ``x``, then a ReLU where ``relu``: on a CUDA tensor
+        the kernels of ``ops/norm_cuda.py`` around PyTorch's two
+        reductions (:meth:`moments`), else :meth:`plain`."""
+        if x.is_cuda:
+            return norm_cuda(self, x, relu)
+        y = self.plain(x)
+        return F.relu(y) if relu else y
+
+    def moments(self, xf: torch.Tensor, xsq: torch.Tensor | None = None):
+        """The batch's ``(mean, E[x^2])`` of ``xf`` (the input in the
+        precision of its statistics, ``ops.dtypes.widen``), over every
+        axis but the channels (and the first, for instance norm), shaped
+        to broadcast against it; under ``reduce`` over the ranks too.
+        ``xsq`` is ``xf * xf`` where the caller has it; else it is formed
+        after the first reduction, the order autograd's sums of ``xf``'s
+        gradient follow."""
+        ch = self.channel_axis % xf.dim()
+        first = 0 if self.kind == "batch" else 1
+        axes = [a for a in range(first, xf.dim()) if a != ch]
+        if self.kind == "batch" and self.reduce is not None:
+            s = xf.sum(dim=axes, keepdim=True)
+            sq = xf * xf if xsq is None else xsq
+            s, ss, n = self.reduce(s, sq.sum(dim=axes, keepdim=True),
+                                   xf.numel() // xf.shape[ch])
+            return s / n, ss / n
+        mean = xf.mean(dim=axes, keepdim=True)
+        sq = xf * xf if xsq is None else xsq
+        return mean, sq.mean(dim=axes, keepdim=True)
+
+    def statistics(self, xf: torch.Tensor):
+        """``(mean, var, clamped)`` that normalise ``xf`` (not read in
+        eval mode), shaped to broadcast against it: in eval mode the
+        running ones and ``clamped`` None; else the batch's
+        (:meth:`moments`), ``clamped`` where ``E[x^2] - mean^2`` was below
+        0 (the variance is clamped to 0 there), and the running ones
+        updated."""
+        if self.kind == "batch" and not self.training:
+            shape = [1] * xf.dim()
+            shape[self.channel_axis] = -1
+            return (self.running_mean.reshape(shape),
+                    self.running_var.reshape(shape), None)
+        mean, ex2 = self.moments(xf)
+        raw = ex2 - mean * mean
+        var = torch.clamp(raw, min=0.0)
+        if self.kind == "batch":
+            with torch.no_grad():
+                d = self.decay
+                self.running_mean.copy_(d * self.running_mean
+                                        + (1.0 - d) * mean.reshape(-1))
+                self.running_var.copy_(d * self.running_var
+                                       + (1.0 - d) * var.reshape(-1))
+        return mean, var, raw < 0
+
+    def plain(self, x: torch.Tensor) -> torch.Tensor:
+        """The norm as tensor code: the CPU's path, and the plain version
+        the kernel is held to."""
         xf = widen(x)
+        mean, var, _ = self.statistics(xf)
         shape = [1] * x.dim()
         shape[self.channel_axis] = -1
-        ch = self.channel_axis % x.dim()
-        if self.kind == "batch" and not self.training:
-            mean = self.running_mean.reshape(shape)
-            var = self.running_var.reshape(shape)
-        else:
-            first = 0 if self.kind == "batch" else 1
-            axes = [a for a in range(first, x.dim()) if a != ch]
-            if self.kind == "batch" and self.reduce is not None:
-                s, ss, n = self.reduce(
-                    xf.sum(dim=axes, keepdim=True),
-                    (xf * xf).sum(dim=axes, keepdim=True),
-                    x.numel() // x.shape[ch])
-                mean = s / n
-                var = torch.clamp(ss / n - mean * mean, min=0.0)
-            else:
-                mean = xf.mean(dim=axes, keepdim=True)
-                var = torch.clamp((xf * xf).mean(dim=axes, keepdim=True)
-                                  - mean * mean, min=0.0)
-            if self.kind == "batch":
-                with torch.no_grad():
-                    d = self.decay
-                    self.running_mean.copy_(d * self.running_mean
-                                            + (1.0 - d) * mean.reshape(-1))
-                    self.running_var.copy_(d * self.running_var
-                                           + (1.0 - d) * var.reshape(-1))
         mul = torch.rsqrt(var + self.eps) * self.weight.reshape(shape)
         y = (xf - mean) * mul + self.bias.reshape(shape)
         return y.to(x.dtype)
@@ -148,6 +185,8 @@ class PNLayer(nn.Module):
         self.norm = (Norm(out_ch, normalization, momentum=norm_momentum)
                      if norm_act else None)
         self.act = ACTIVATIONS[activation] if norm_act else None
+        # a ReLU runs inside the norm's kernel
+        self.fuse_relu = activation == "relu"
         self.dtype = dtype
         self.dropout_rate = dropout
         # the rank's block of the batch, (r, n), for dropout
@@ -165,7 +204,8 @@ class PNLayer(nn.Module):
         if self.tp is not None:
             x = self.tp.gather(x)
         if self.norm is not None:
-            x = self.act(self.norm(x))
+            x = (self.norm(x, relu=True) if self.fuse_relu
+                 else self.act(self.norm(x)))
         if self.training and 0.0 < self.dropout_rate < 1.0:
             x = dropout(x, self.dropout_rate, generator, self.batch_rows)
         return x

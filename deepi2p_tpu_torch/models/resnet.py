@@ -45,7 +45,7 @@ class BasicBlock(nn.Module):
                                              _bn(cout)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.relu(self.bn1(_apply_conv(self.conv1, x)))
+        y = self.bn1(_apply_conv(self.conv1, x), relu=True)
         y = self.bn2(_apply_conv(self.conv2, y))
         identity = x
         if self.downsample is not None:
@@ -73,7 +73,7 @@ class ResNetPyramid(nn.Module):
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         """x (B, H, W, 3) -> pyramid, maps (B, h, w, C), global (B, 512)."""
         x = x.permute(0, 3, 1, 2)
-        x = F.relu(self.bn1(_apply_conv(self.conv1, x)))
+        x = self.bn1(_apply_conv(self.conv1, x), relu=True)
         out = [x]
         x = F.max_pool2d(x, 3, stride=2, padding=1)
         for stage in range(self.num_stages):

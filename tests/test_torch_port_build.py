@@ -1,5 +1,7 @@
 """The kernel build: one nvcc command for every CUDA source, for sm_90a,
 into a shared library that git ignores.  Runs without nvcc."""
+import ctypes
+import re
 import subprocess
 from pathlib import Path
 
@@ -74,3 +76,27 @@ def test_missing_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.delenv("CUDA_PATH", raising=False)
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.find_nvcc()
+
+
+def _c_type(param: str):
+    if "*" in param:
+        return ctypes.c_void_p
+    for word, t in (("long long", ctypes.c_longlong),
+                    ("double", ctypes.c_double), ("float", ctypes.c_float),
+                    ("int", ctypes.c_int)):
+        if word in param:
+            return t
+    raise AssertionError(f"unknown parameter type: {param!r}")
+
+
+def test_signatures_match_the_c_entry_points():
+    """Every typed entry point of ``SIGNATURES`` is defined in a source
+    with C linkage and takes parameters of those types, in that order:
+    ctypes would pass a mistyped argument without a word."""
+    text = "\n".join(p.read_text() for p in _build.sources())
+    for name, argtypes in _build.SIGNATURES.items():
+        found = re.findall(rf"^(?:extern \"C\" )?int {name}\(([^)]*)\)\s*\{{",
+                           text, flags=re.M)
+        assert len(found) == 1, name
+        params = [p.strip() for p in found[0].split(",")]
+        assert [_c_type(p) for p in params] == argtypes, name
