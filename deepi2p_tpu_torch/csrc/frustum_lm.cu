@@ -12,7 +12,11 @@
 // sum 0.5 log1p(|r|^2) val; damped Cholesky with A_ii (1 + lambda) + 1e-9
 // and sqrt clamped at 1e-20; a step is taken only if the cost drops
 // strictly, else the carried H and g stay; lambda /3 or *3 within
-// [1e-9, 1e9]; translation box-clipped after each step.  The Pallas
+// [1e-9, 1e9]; translation box-clipped after each step.  One departure: a
+// theta that is not finite costs NaN here, so such a step is never taken;
+// the Pallas kernel takes a NaN step (from a NaN H: an outside-labelled
+// point at exactly p2 = 0) where no point of the launch is labelled
+// inside, since every residual at it is then 0.  The Pallas
 // kernel's zero-padded point tail (N not a multiple of 1024) has no
 // counterpart here: the loop visits exactly N points, which is what the
 // XLA solver (`frustum_fast.lm_solve_fast`) computes as well.
@@ -113,6 +117,10 @@ __device__ __forceinline__ float relu_n(float x) {
 }
 __device__ __forceinline__ float clipn(float x, float lo, float hi) {
   return x != x ? x : fminf(fmaxf(x, lo), hi);
+}
+// neither NaN nor +-inf
+__device__ __forceinline__ bool finite_f32(float x) {
+  return fabsf(x) <= 3.402823466e38f;
 }
 
 // The 15 per-point contributions at theta, 2-D mode (c = cos ry,
@@ -799,7 +807,15 @@ lm_kernel(const float* __restrict__ pts, const float* __restrict__ labels,
     const float sum = cluster_sum<M::kQ, M::kStride>(
         cluster, &s_part[buf][0][0], x, g * W, C, W, lane, acc);
     buf ^= 1;
-    const float c_new = __shfl_sync(0xffffffffu, sum, M::kQ - 1);
+    // the cost of a theta that is not finite is NaN, so such a step is
+    // never taken: where every point of the launch is labelled outside,
+    // its residuals would all be 0 and it would score 0
+    bool prop_finite = true;
+#pragma unroll
+    for (int q = 0; q < P; ++q)
+      prop_finite = prop_finite && finite_f32(prop[q]);
+    const float c_sum = __shfl_sync(0xffffffffu, sum, M::kQ - 1);
+    const float c_new = prop_finite ? c_sum : __int_as_float(0x7fc00000);
     const bool accept = it == 0 || c_new < cost;
     if (it > 0)
       lam = fminf(fmaxf(accept ? lam / 3.0f : lam * 3.0f, 1e-9f), 1e9f);

@@ -30,6 +30,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..utils.profiling import span
 from .frustum_cuda import _chol_solve, _clip_t, lm_solve
 from .frustum_fast import lm_solve_fast
 
@@ -328,93 +329,164 @@ def solve_frustum_batch(pc, pred_inside, K, *, H: int, W: int,
     Returns:
       (P (B, 4, 4), cost (B,)); a pair with no inside points gets the
       identity pose and cost 1e4.
+
+    Non-finite inits: an init whose theta or cost is not finite ranks after
+    every finite one, in the selection of the survivors and in the final
+    pick (:func:`_rank_key`), so every pair with an inside label and a
+    finite init gets a finite pose and cost; a pair with none finite gets
+    the identity and cost 1e4, as a pair with no inside label does.  Where
+    every init is finite the ranking is by cost alone, as before.  The JAX
+    package ranks by cost alone: its argsort puts a NaN cost last, but its
+    argmin picks a NaN, and a NaN theta of finite cost (a NaN step taken in
+    a launch whose points are all labelled outside, where it scores 0)
+    passes both; the LM here never takes a non-finite step
+    (:func:`.frustum_cuda.lm_solve_plain`).  Spans (live only under
+    ``torch.profiler``): ``frustum.solve`` around the call, inside it
+    ``frustum.inits``, then ``frustum.probe``, ``frustum.select`` and
+    ``frustum.refine`` where the budget is halved, else ``frustum.lm``,
+    then ``frustum.pick``.
     """
-    if probe_stride is None:
-        probe_stride = max(1, 4 // solver_stride)
-    pc = pc.float()
-    K = K.float().contiguous()
-    ang, valid = initial_guess(pc, pred_inside)
-    if theta0 is None:
-        if generator is None:
-            raise ValueError("need a generator when theta0 is not given")
-        theta0 = sample_inits(generator, ang, n_inits, is_2d=is_2d)
-    theta0 = theta0.float()
-    P_dim = theta0.shape[2]
-
-    def sub(x, stride):
-        return x[:, ::stride].contiguous()
-
-    labels = pred_inside.to(pc.dtype)
-    pc_s, lab_s, val_s = (sub(x, solver_stride) for x in (pc, labels, valid))
     if backend not in ("auto", "kernel", "fast", "generic"):
         raise ValueError(f"unknown backend {backend!r}")
     if backend == "fast" and not is_2d:
         raise ValueError("backend='fast' is the 2-D LM; the 6-DoF mode "
                          "takes 'kernel' or 'generic'")
+    if probe_stride is None:
+        probe_stride = max(1, 4 // solver_stride)
     generic = (backend == "generic" or outside_weight != 1.0
                or point_weights is not None or edge_margin_px != 0.0)
-    if generic:
-        pw_s = (None if point_weights is None
-                else sub(point_weights.to(pc.dtype), solver_stride))
-        res = lm_solve_generic(pc_s, lab_s, val_s, K, theta0, t_lb, t_ub,
-                               H=H, W=W, max_iter=max_iter, is_2d=is_2d,
-                               outside_weight=outside_weight,
-                               point_weights=pw_s,
-                               edge_margin_px=float(edge_margin_px))
-        thetas, costs = res.theta, res.cost
-    elif backend == "fast":
-        probe_iter = min(8, max_iter)
-        fast = dict(H=H, W=W)
-        thetas, costs, _ = lm_solve_fast(pc_s, lab_s, val_s, K, theta0,
-                                         t_lb, t_ub, max_iter=probe_iter,
-                                         **fast)
-        I = theta0.shape[1]
-        if max_iter > probe_iter and I >= 8:
-            keep = (max(I // 4, 4) if survivors is None
-                    else max(min(survivors, I), 4))
-            top = torch.argsort(costs, dim=1, stable=True)[:, :keep]
-            theta_top = torch.gather(thetas, 1,
-                                     top[:, :, None].expand(-1, -1, P_dim))
-            thetas, costs, _ = lm_solve_fast(
-                pc_s, lab_s, val_s, K, theta_top, t_lb, t_ub,
-                max_iter=max_iter - probe_iter, **fast)
-    else:
-        # a multiple of I_BLK inits, padded by repeating the first (never a
-        # new draw), as the JAX package's Pallas branch does
-        pad = (-theta0.shape[1]) % I_BLK
-        if pad:
-            theta0 = torch.cat([theta0, theta0[:, :1].expand(-1, pad, -1)],
-                               1)
-        theta0 = theta0.contiguous()
-        kw = dict(H=H, W=W)
-        I = theta0.shape[1]
-        probe_iter = min(8, max_iter)
-        if max_iter > probe_iter and I >= 4 * I_BLK:
-            ps = probe_stride
-            thetas, costs = lm_solve(sub(pc_s, ps), sub(lab_s, ps),
-                                     sub(val_s, ps), K, theta0, t_lb, t_ub,
-                                     max_iter=probe_iter, **kw)
-            keep = I // 8 if survivors is None else min(survivors, I)
-            keep = max(keep // I_BLK * I_BLK, I_BLK)
-            top = torch.argsort(costs, dim=1, stable=True)[:, :keep]
-            theta_top = torch.gather(thetas, 1,
-                                     top[:, :, None].expand(-1, -1, P_dim))
-            thetas, costs = lm_solve(pc_s, lab_s, val_s, K,
-                                     theta_top.contiguous(), t_lb, t_ub,
-                                     max_iter=max_iter - probe_iter, **kw)
+    with span("frustum.solve"):
+        with span("frustum.inits"):
+            pc = pc.float()
+            K = K.float().contiguous()
+            ang, valid = initial_guess(pc, pred_inside)
+            if theta0 is None:
+                if generator is None:
+                    raise ValueError("need a generator when theta0 is not "
+                                     "given")
+                theta0 = sample_inits(generator, ang, n_inits, is_2d=is_2d)
+            theta0 = theta0.float()
+            labels = pred_inside.to(pc.dtype)
+            pts = tuple(_sub(x, solver_stride) for x in (pc, labels, valid))
+            if not generic and backend != "fast":
+                theta0 = _pad_inits(theta0)
+        if generic:
+            pw_s = (None if point_weights is None
+                    else _sub(point_weights.to(pc.dtype), solver_stride))
+            with span("frustum.lm"):
+                res = lm_solve_generic(
+                    *pts, K, theta0, t_lb, t_ub, H=H, W=W,
+                    max_iter=max_iter, is_2d=is_2d,
+                    outside_weight=outside_weight, point_weights=pw_s,
+                    edge_margin_px=float(edge_margin_px))
+            thetas, costs = res.theta, res.cost
+        elif backend == "fast":
+            thetas, costs = _halving_fast(pts, K, theta0, t_lb, t_ub, H=H,
+                                          W=W, max_iter=max_iter,
+                                          survivors=survivors)
         else:
-            thetas, costs = lm_solve(pc_s, lab_s, val_s, K, theta0, t_lb,
-                                     t_ub, max_iter=max_iter, **kw)
+            thetas, costs = _halving_kernel(pts, K, theta0, t_lb, t_ub, H=H,
+                                            W=W, max_iter=max_iter,
+                                            probe_stride=probe_stride,
+                                            survivors=survivors)
+        with span("frustum.pick"):
+            return _pick(thetas, costs, pred_inside, is_2d)
 
-    best = torch.argmin(costs, dim=1, keepdim=True)             # (B, 1)
-    best_theta = torch.gather(thetas, 1,
-                              best[:, :, None].expand(-1, -1, P_dim))
-    best_theta = best_theta[:, 0]
+
+def _sub(x, stride):
+    return x[:, ::stride].contiguous()
+
+
+def _pad_inits(theta0):
+    """A multiple of I_BLK inits, padded by repeating the first (never a
+    new draw), as the JAX package's Pallas branch does."""
+    pad = (-theta0.shape[1]) % I_BLK
+    if pad:
+        theta0 = torch.cat([theta0, theta0[:, :1].expand(-1, pad, -1)], 1)
+    return theta0.contiguous()
+
+
+def _rank_key(thetas, costs):
+    """The costs (B, I) by which inits are ranked, with +inf for every init
+    whose theta or cost is not finite, so that it ranks after every finite
+    one; where all are finite, the costs themselves."""
+    ok = torch.isfinite(costs) & torch.isfinite(thetas).all(-1)
+    return torch.where(ok, costs, torch.full_like(costs, math.inf))
+
+
+def _select(thetas, costs, keep: int):
+    """The ``keep`` best inits (B, keep, P) by :func:`_rank_key`, a stable
+    sort."""
+    top = torch.argsort(_rank_key(thetas, costs), dim=1,
+                        stable=True)[:, :keep]
+    return torch.gather(thetas, 1,
+                        top[:, :, None].expand(-1, -1, thetas.shape[2]))
+
+
+def _halving_kernel(pts, K, theta0, t_lb, t_ub, *, H: int, W: int,
+                    max_iter: int, probe_stride: int, survivors):
+    """The ``"kernel"`` route: a probe launch on every ``probe_stride``-th
+    solver point, the best eighth (or ``survivors``, a multiple of I_BLK)
+    refined in a second launch; one launch for fewer than 4 I_BLK inits
+    or no iteration past the probe's."""
+    kw = dict(H=H, W=W)
+    I = theta0.shape[1]
+    probe_iter = min(8, max_iter)
+    if not (max_iter > probe_iter and I >= 4 * I_BLK):
+        with span("frustum.lm"):
+            return lm_solve(*pts, K, theta0, t_lb, t_ub, max_iter=max_iter,
+                            **kw)
+    with span("frustum.probe"):
+        thetas, costs = lm_solve(*(_sub(x, probe_stride) for x in pts), K,
+                                 theta0, t_lb, t_ub, max_iter=probe_iter,
+                                 **kw)
+    with span("frustum.select"):
+        keep = I // 8 if survivors is None else min(survivors, I)
+        keep = max(keep // I_BLK * I_BLK, I_BLK)
+        theta_top = _select(thetas, costs, keep).contiguous()
+    with span("frustum.refine"):
+        return lm_solve(*pts, K, theta_top, t_lb, t_ub,
+                        max_iter=max_iter - probe_iter, **kw)
+
+
+def _halving_fast(pts, K, theta0, t_lb, t_ub, *, H: int, W: int,
+                  max_iter: int, survivors):
+    """The ``"fast"`` route: :func:`.frustum_fast.lm_solve_fast` for the
+    probe's iterations on the solver points, then, with at least 8 inits,
+    the best quarter (or ``survivors``, at least 4) refined."""
+    kw = dict(H=H, W=W)
+    probe_iter = min(8, max_iter)
+    with span("frustum.probe"):
+        thetas, costs, _ = lm_solve_fast(*pts, K, theta0, t_lb, t_ub,
+                                         max_iter=probe_iter, **kw)
+    I = theta0.shape[1]
+    if not (max_iter > probe_iter and I >= 8):
+        return thetas, costs
+    with span("frustum.select"):
+        keep = (max(I // 4, 4) if survivors is None
+                else max(min(survivors, I), 4))
+        theta_top = _select(thetas, costs, keep)
+    with span("frustum.refine"):
+        thetas, costs, _ = lm_solve_fast(*pts, K, theta_top, t_lb, t_ub,
+                                         max_iter=max_iter - probe_iter,
+                                         **kw)
+    return thetas, costs
+
+
+def _pick(thetas, costs, pred_inside, is_2d: bool):
+    """The best init of each pair by :func:`_rank_key` as (P (B, 4, 4),
+    cost (B,)): the identity and cost 1e4 for a pair with no inside label,
+    or with no init whose theta and cost are finite."""
+    key = _rank_key(thetas, costs)
+    best = torch.argmin(key, dim=1, keepdim=True)              # (B, 1)
+    best_theta = torch.gather(
+        thetas, 1, best[:, :, None].expand(-1, -1, thetas.shape[2]))[:, 0]
     best_cost = torch.gather(costs, 1, best)[:, 0]
     P = theta_to_pose(best_theta, is_2d)
-    has_inside = pred_inside.sum(dim=1) > 0
+    solved = (pred_inside.sum(dim=1) > 0) & \
+        torch.isfinite(torch.gather(key, 1, best)[:, 0])
     eye = torch.eye(4, dtype=P.dtype, device=P.device).expand_as(P)
-    P = torch.where(has_inside[:, None, None], P, eye)
-    best_cost = torch.where(has_inside, best_cost,
+    P = torch.where(solved[:, None, None], P, eye)
+    best_cost = torch.where(solved, best_cost,
                             torch.full_like(best_cost, 1e4))
     return P, best_cost

@@ -17,7 +17,11 @@ butterfly, then the slices in turn (:func:`_cluster_sum`), with each
 slice's inside-labelled points first when the kernel keeps them in shared
 memory (:func:`_point_order`).  It has the Pallas kernel's carry
 semantics: one sweep per iteration at the proposal, the carried H and g
-kept on a rejected step.
+kept on a rejected step, with one departure in both: a theta that is not
+finite costs NaN, so such a step is never taken (the Pallas kernel takes
+a NaN step where no point of the launch is labelled inside, since every
+residual at it is 0 there; the step comes from a NaN H, which an
+outside-labelled point at exactly p2 = 0 gives in all three).
 
 The 6-DoF Jacobian is derived by hand (the Pallas kernel linearises with
 ``jax.linearize``): ``p = R(r) x + t`` with the rotation of
@@ -460,8 +464,15 @@ def lm_solve_plain(pts, labels, valid, K, theta0, t_lb, t_ub, *, H: int,
     cx, cy = K[:, 0, 2, None, None], K[:, 1, 2, None, None]
     H1, W1 = float(H - 1), float(W - 1)
 
+    nan = torch.full((), float("nan"), dtype=f32, device=pts.device)
+
     def sweep(th):
-        return sweep_fn(th, xs, ys, zs, lab, val, fx, fy, cx, cy, H1, W1)
+        # the cost of a theta that is not finite is NaN, so such a step is
+        # never taken: where every point of the launch is labelled outside,
+        # its residuals would all be 0 and it would score 0
+        Hs, gs, cs = sweep_fn(th, xs, ys, zs, lab, val, fx, fy, cx, cy, H1,
+                              W1)
+        return Hs, gs, torch.where(torch.isfinite(th).all(-1), cs, nan)
 
     theta = _clip_t(theta0.to(f32), t_lb, t_ub)
     lam = torch.full(theta.shape[:2], 1e-3, dtype=f32, device=theta.device)
