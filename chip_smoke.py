@@ -50,8 +50,17 @@ announced as ``phase=<name> start|done t=<seconds>``:
    against N=20479, databases too large for shared memory (streamed),
    and D = 1, 5 and 8.  Each line names the launch plan.  Times of the
    kernel and the plain version at the launch shape, of the kernel and
-   ``torch.cdist`` + ``torch.min`` at one init group; then one ICP batch
-   timed and under ``torch.profiler`` (1-NN vs SVD vs gathers).
+   ``torch.cdist`` + ``torch.min`` at one init group; then ICP's own
+   kernels (``icp_cuda``) at the launch shape: the transform bitwise
+   ``_transform``, one update's inlier counts, moments and float64 R, t
+   against ``_kabsch`` in float64, each kernel timed against its bound
+   and its plain chain; one ICP batch on the card's path against the
+   plain path run on the card (the CPU's code: PyTorch ops and
+   ``torch.linalg.svd``) from the same inits, poses and fitness; then
+   one batch timed and under ``torch.profiler`` (1-NN vs the
+   ``icp_cuda`` kernels vs the rest).  The ``eval`` and ``depth`` phases
+   hold ``icp_cuda.launches`` to 2 an iteration and 1 for the fitness
+   pass in their ICP batches.
 9. ``lm6``: the LM kernel's 6-DoF mode (its registers, shared memory and
    local memory printed) against its plain version, bitwise, at the
    6-DoF solve's probe (N=5120, 64 inits, 8 iterations) and refine
@@ -263,6 +272,7 @@ PROBE_ITER = 8
 
 # H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3
 PEAK_F32_OPS = 67e12
+PEAK_F64_OPS = 34e12
 PEAK_BYTES = 3.35e12
 
 # the evaluation path (KITTI shape, the JAX icp_batch defaults)
@@ -1041,15 +1051,181 @@ def nn1_phase(torch, raw):
         compute_mode="donot_use_mm_for_euclid_dist"), dim=-1), 2)
     log(f"nn1 init group: S={NN1_SETS} N={N} M={M} ms={g_ms:.4f} "
         f"cdist+min ms={g_lib:.4f}")
+    row["icp"] = icp_launch_check(torch, source, target)
+    row["icp"]["paths"] = icp_paths(torch, source, target)
     icp_profile(torch, source, target)
     return row
+
+
+def icp_launch_check(torch, source, target) -> dict:
+    """One ICP iteration's two ``icp_cuda`` kernels at the evaluation
+    batch's launch shape (8 pairs x 64 inits: 512 sets of 20480 points
+    against 8 clouds of 5120) against the plain path: the transform
+    bitwise ``_transform``, the 1-NN of its output bitwise that of
+    ``_transform``'s, each set's inlier count exact, its moments within
+    1e-12 of a float64 sum (relative to the largest of each moment over
+    the sets), the update's float64 R and t within 1e-9 of ``_kabsch`` in
+    float64 where the set has at least 3 inliers and its S's second and
+    third singular values lie 1e-3 sigma_1 apart (else the SVD's rounding
+    moves R more), its float32 pose their rounding, and the poses of sets
+    with too few inliers kept bitwise.  Then each kernel's device time
+    by CUDA events, its bound and the plain chain's time."""
+    from deepi2p_tpu_torch.ops.knn import nn1
+    from deepi2p_tpu_torch.register import icp as ti
+    from deepi2p_tpu_torch.register import icp_cuda as ic
+
+    B, N, _ = source.shape
+    M = target.shape[1]
+    I = -(-ICP_INITS // 8) * 8
+    S = B * I
+    P0 = ti._draw_inits(torch.Generator().manual_seed(5), (B, I),
+                        (5.0, 0.0, 10.0), math.pi).cuda()
+    R0, t0 = P0[..., :3, :3], P0[..., :3, 3]
+    thr = float(ti._thr_schedule(1.0, None, ICP_ITERS)[0])
+    rt0 = ic.pose_rows(R0, t0)
+    moved = torch.empty(S, N, 3, device="cuda")
+    ic.transform(source, rt0, moved)
+    want = ti._transform(source[:, None], R0, t0).reshape(S, N, 3)
+    require(torch.equal(moved, want),
+            "icp: the transform is not bitwise _transform at the launch")
+    d2, idx = nn1(moved, target)
+    d2p, idxp = nn1(want, target)
+    require(torch.equal(d2, d2p) and torch.equal(idx, idxp),
+            "icp: the 1-NN of the transform's output is not that of "
+            "_transform's")
+    del want, d2p, idxp
+    tgt4 = ic.pad_rows(target)
+    rt = rt0.clone()
+    stats = torch.full((S, ic.STATS), float("nan"), dtype=torch.float64,
+                       device="cuda")
+    ic.update(source, tgt4, d2, idx, rt, thr, stats)
+
+    w = (torch.sqrt(d2) < thr).reshape(B, I, N)
+    dst = torch.gather(target[:, None].expand(-1, I, -1, -1), 2,
+                       idx.long().reshape(B, I, N, 1).expand(-1, -1, -1, 3))
+    sel = w[..., None]
+    s64 = torch.where(sel, source[:, None].double(), 0.0)
+    d64 = torch.where(sel, dst.double(), 0.0)
+    m = torch.cat([w.sum(-1).double()[..., None], s64.sum(-2), d64.sum(-2),
+                   (s64[..., :, None] * d64[..., None, :]).sum(-3)
+                   .flatten(-2)], dim=-1).reshape(S, ic.SUMS)
+    del s64, d64
+    R, t = ti._kabsch(source[:, None].double(), dst.double(), w.double())
+    R, t = R.reshape(S, 9), t.reshape(S, 3)
+    del dst
+    scale = m.abs().amax(0, keepdim=True).clamp(min=1.0)
+    mom_err = float(((stats[:, :ic.SUMS] - m).abs() / scale).max())
+    ok = m[:, 0] >= ic.MIN_INLIERS
+    Wc = m[:, :1].clamp(min=1e-6)
+    Smat = m[:, 7:].reshape(S, 3, 3) \
+        - (m[:, 1:4] / Wc)[:, :, None] * m[:, None, 4:7]
+    sv = torch.linalg.svdvals(Smat)
+    apart = ok & (sv[:, 1] - sv[:, 2] > 1e-3 * sv[:, 0])
+    r_err = float((stats[apart, ic.SUMS:ic.SUMS + 9] - R[apart]).abs()
+                  .max()) if bool(apart.any()) else float("nan")
+    t_err = float((stats[apart, ic.SUMS + 9:] - t[apart]).abs().max()) \
+        if bool(apart.any()) else float("nan")
+    out = dict(sets=S, sets_ok=int(ok.sum()), sets_compared=int(apart.sum()),
+               inliers_min=int(m[:, 0].min()), inliers_max=int(m[:, 0].max()),
+               moments_rel_err=mom_err, R_err=r_err, t_err=t_err,
+               max_abs_err=max(r_err, t_err))
+    log(f"icp launch: S={S} N={N} B={B} M={M} thr={thr}: "
+        + json.dumps(out))
+    require(torch.equal(stats[:, 0], m[:, 0]), "icp: inlier counts differ")
+    require(mom_err < 1e-12, f"icp: moments off by {mom_err:.3g} relative")
+    require(out["sets_compared"] >= 0.9 * out["sets_ok"],
+            f"icp: only {out['sets_compared']} of {out['sets_ok']} sets "
+            f"held to _kabsch")
+    require(r_err < 1e-9 and t_err < 1e-9,
+            f"icp: float64 R, t off _kabsch's by {r_err:.3g}, {t_err:.3g}")
+    require(torch.equal(rt[ok], stats[ok, ic.SUMS:].float()),
+            "icp: the float32 pose is not the float64 solve's rounding")
+    require(torch.equal(rt[~ok], rt0[~ok]),
+            "icp: a set with too few inliers moved")
+
+    # times: each kernel by CUDA events over 20 calls, the plain chain
+    # (_transform; weights, gather, _kabsch with its SVD, selects)
+    rt_t = rt0.clone()
+    tr_ms = cuda_ms(torch, lambda: ic.transform(source, rt0, moved), 20)
+    up_ms = cuda_ms(torch, lambda: ic.update(source, tgt4, d2, idx, rt_t,
+                                             thr), 20)
+    src, tgt = source[:, None], target[:, None].expand(-1, I, -1, -1)
+    d2r, idxr = d2.reshape(B, I, N), idx.reshape(B, I, N)
+
+    def plain_update():
+        wp = (torch.sqrt(d2r) < thr).to(torch.float32)
+        dp = torch.gather(tgt, 2, idxr.long()[..., None].expand(-1, -1, -1, 3))
+        Rn, tn = ti._kabsch(src, dp, wp)
+        okp = torch.sum(wp, dim=-1) >= 3
+        return (torch.where(okp[..., None, None], Rn, R0),
+                torch.where(okp[..., None], tn, t0))
+
+    ptr_ms = cuda_ms(torch, lambda: ti._transform(src, R0, t0), 3)
+    pup_ms = cuda_ms(torch, plain_update, 3)
+    tr_bytes = 4 * (B * N * 3 + S * 12 + S * N * 3)
+    up_bytes = 4 * (2 * S * N + B * N * 3 + 2 * S * 12) + 16 * B * M
+    up_ops = 25 * S * N       # per point: 16 float64 adds, 9 multiplies
+    tr_bound = tr_bytes / PEAK_BYTES * 1e3
+    up_bound = max(up_bytes / PEAK_BYTES, up_ops / PEAK_F64_OPS) * 1e3
+    times = dict(ms=tr_ms + up_ms, plain_ms=ptr_ms + pup_ms,
+                 bound_ms=tr_bound + up_bound, bound_by="bytes"
+                 if up_bytes / PEAK_BYTES >= up_ops / PEAK_F64_OPS
+                 else "transform bytes, update float64 operations",
+                 transform_ms=tr_ms, transform_bound_ms=tr_bound,
+                 transform_plain_ms=ptr_ms, update_ms=up_ms,
+                 update_bound_ms=up_bound, update_plain_ms=pup_ms)
+    log("icp launch times: " + json.dumps(times))
+    out.update(times)
+    return out
+
+
+def icp_paths(torch, source, target) -> dict:
+    """One ICP solve at the evaluation batch's shape (60 -> 64 inits, 30
+    iterations) on the card's path and on the plain path run on the card,
+    from the same inits: the card's path makes 2 ``icp_cuda`` launches an
+    iteration and one for the fitness pass, its poses are finite, its
+    best fitness per pair within 0.01 of the plain path's, and most
+    inits end at the plain path's pose (an init may part where a point
+    flips at the threshold within the f32 SVD's rounding)."""
+    from deepi2p_tpu_torch.register import icp as ti
+    from deepi2p_tpu_torch.register import icp_cuda
+
+    B = source.shape[0]
+    I = -(-ICP_INITS // 8) * 8
+    P0 = ti._draw_inits(torch.Generator().manual_seed(0), (B, I),
+                        (5.0, 0.0, 10.0), math.pi).cuda()
+    thr = ti._thr_schedule(1.0, None, ICP_ITERS)
+    before = icp_cuda.launches
+    P, fit = ti._icp_solve(source, target, P0, thr, 1.0)
+    launches = icp_cuda.launches - before
+    Pp, fitp = ti._icp_solve_plain(source, target, P0, thr, 1.0)
+    gap = (P - Pp).abs().amax(dim=(-2, -1)).flatten()
+    out = dict(launches=launches,
+               best_fitness_gap=float((fit.amax(1) - fitp.amax(1)).abs()
+                                      .max()),
+               fitness_gap_max=float((fit - fitp).abs().max()),
+               pose_gap_median=float(gap.median()),
+               pose_gap_max=float(gap.max()),
+               inits_within_1e3=float((gap < 1e-3).double().mean()))
+    log(f"icp paths: card vs plain on the card, B={B} inits={I} "
+        f"iterations={ICP_ITERS}: " + json.dumps(out))
+    require(launches == 2 * ICP_ITERS + 1,
+            f"icp_cuda launches a batch {launches} != {2 * ICP_ITERS + 1}")
+    require(bool(torch.isfinite(P).all()), "icp: a non-finite pose")
+    require(out["best_fitness_gap"] <= 0.01,
+            f"icp: best fitness parts from the plain path's by "
+            f"{out['best_fitness_gap']}")
+    require(out["inits_within_1e3"] >= 0.9,
+            f"icp: only {out['inits_within_1e3']:.3f} of the inits end "
+            f"within 1e-3 of the plain path's pose")
+    return out
 
 
 def icp_profile(torch, source, target):
     """One ICP batch of the evaluation path (the ``icp`` method's
     ``icp_batch`` call), timed by the host clock after a warm-up, then
-    under ``torch.profiler``: device time of the 1-NN kernel, the SVD, the
-    determinant, the gathers and the rest."""
+    under ``torch.profiler``: device time of the 1-NN kernel, the
+    ``icp_cuda`` kernels (transform, update) and the rest."""
     from torch.autograd import DeviceType
     from deepi2p_tpu_torch.register.icp import icp_batch
     from deepi2p_tpu_torch.utils.profiling import is_span_range
@@ -1080,8 +1256,8 @@ def icp_profile(torch, source, target):
             f"(split not measured)")
         return
     groups = (("nn1 kernel", ("nn1_kernel",)),
-              ("svd", ("svd", "jacobi", "gesvd", "syevj")),
-              ("det (LU)", ("getrf", "lu_", "det")), ("gather", ("gather",)))
+              ("icp transform", ("transform_kernel",)),
+              ("icp update", ("update_kernel",)))
     split = {name: [0.0, 0] for name, _ in groups}
     split["rest"] = [0.0, 0]
     for e in events:
@@ -1303,13 +1479,13 @@ def eval_phase(torch, cfg, raw):
     from deepi2p_tpu_torch.eval.harness import evaluate_registration
     from deepi2p_tpu_torch.models import build_detector
     from deepi2p_tpu_torch.ops.knn_cuda import knn_cuda, nn1_cuda
-    from deepi2p_tpu_torch.register import lm_solve_cuda
+    from deepi2p_tpu_torch.register import icp_cuda, lm_solve_cuda
 
     model = build_detector(cfg, device="cuda", seed=0)
     B = raw["pc"].shape[0]
     with tempfile.TemporaryDirectory(prefix="deepi2p_eval_") as tmp:
         dump_dir, pseudo_dir = f"{tmp}/dump", f"{tmp}/pseudo"
-        knn_cuda.launches = nn1_cuda.launches = 0
+        knn_cuda.launches = nn1_cuda.launches = icp_cuda.launches = 0
         lm_solve_cuda.launches = lm_solve_cuda.launches_p6 = 0
         t = time.perf_counter()
         acc = dump_predictions(model, [raw], cfg, dump_dir)
@@ -1329,26 +1505,34 @@ def eval_phase(torch, cfg, raw):
                 ("random", dict(method="random"))]
         counts = {}
         for name, args in runs:
-            before = (nn1_cuda.launches, lm_solve_cuda.launches)
+            before = (nn1_cuda.launches, lm_solve_cuda.launches,
+                      icp_cuda.launches)
             t = time.perf_counter()
             summ = evaluate_registration(dump_dir, **kw, **args)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t
             counts[name] = (nn1_cuda.launches - before[0],
-                            lm_solve_cuda.launches - before[1])
-            log(f"eval {name}: wall {wall:.4f} s, launches (nn1, lm_p4) "
-                f"{counts[name]}, summary {json.dumps(summ)}")
+                            lm_solve_cuda.launches - before[1],
+                            icp_cuda.launches - before[2])
+            log(f"eval {name}: wall {wall:.4f} s, launches (nn1, lm_p4, "
+                f"icp) {counts[name]}, summary {json.dumps(summ)}")
             require(summ["num_pairs"] == B, f"eval {name}: pair count")
             for key in ("rte_mean", "rre_mean", "success_rate"):
                 require(math.isfinite(summ[key]),
                         f"eval {name}: non-finite {key}")
         launches = {"knn": knn_cuda.launches, "nn1": nn1_cuda.launches,
-                    "lm_p4": lm_solve_cuda.launches}
+                    "lm_p4": lm_solve_cuda.launches,
+                    "icp": icp_cuda.launches}
         log(f"eval: launches {launches}")
         eval_lm_check(torch, cfg, dump_dir)
     require(counts["icp"][0] >= ICP_ITERS + 1,
             f"nn1 launches per ICP batch {counts['icp'][0]} < "
             f"{ICP_ITERS + 1}")
+    # one batch of B pairs: 2 icp_cuda launches an iteration, 1 for fitness
+    require(counts["icp"][2] == 2 * ICP_ITERS + 1
+            and launches["icp"] == 2 * ICP_ITERS + 1,
+            f"icp_cuda launches in the ICP batch {counts['icp'][2]}, in the "
+            f"phase {launches['icp']}, not {2 * ICP_ITERS + 1}")
     require(launches["knn"] > 0, "the dump's forward launched no kNN")
     require(launches["lm_p4"] > 0, "the frustum method launched no 2-D LM")
     return launches
@@ -1498,6 +1682,7 @@ def depth_phase(torch, cfg, raw):
     from deepi2p_tpu_torch.models import build_detector
     from deepi2p_tpu_torch.models.depth import build_depth_net
     from deepi2p_tpu_torch.ops.knn_cuda import nn1_cuda
+    from deepi2p_tpu_torch.register import icp_cuda
     from deepi2p_tpu_torch.train.depth_cli import (DepthTrainer, depth_batch,
                                                    load_depth_fn,
                                                    save_depth_params)
@@ -1575,7 +1760,7 @@ def depth_phase(torch, cfg, raw):
                 f"depth: card vs CPU depth {map_err:.3g}, clouds "
                 f"{pc_err:.3g}")
 
-        nn1_cuda.launches = 0
+        nn1_cuda.launches = icp_cuda.launches = 0
         t = time.perf_counter()
         summ = eval_cli.main(["solve", "--data-dir", dump_dir, "--method",
                               "icp", "--pseudo-dir", pseudo, "--img-h",
@@ -1584,10 +1769,13 @@ def depth_phase(torch, cfg, raw):
                               str(ICP_ITERS)])
         torch.cuda.synchronize()
         icp_s = time.perf_counter() - t
-        launches = nn1_cuda.launches
+        launches, icp_launches = nn1_cuda.launches, icp_cuda.launches
         require(launches == ICP_ITERS + 1,
                 f"depth: {launches} nn1 launches in one ICP batch, not "
                 f"{ICP_ITERS + 1}")
+        require(icp_launches == 2 * ICP_ITERS + 1,
+                f"depth: {icp_launches} icp_cuda launches in one ICP batch, "
+                f"not {2 * ICP_ITERS + 1}")
         require(summ["num_pairs"] == n and all(
             math.isfinite(summ[k]) for k in ("rte_mean", "rre_mean")),
             f"depth: ICP summary {summ}")
@@ -1598,12 +1786,14 @@ def depth_phase(torch, cfg, raw):
         share = launches * nn1_ms / (icp_s * 1e3)
         log(f"depth: eval.cli solve --method icp --pseudo-dir on the "
             f"estimated clouds ({ICP_INITS} inits, {ICP_ITERS} iterations): "
-            f"{icp_s:.4f} s per batch of {n}, nn1 launches {launches}, the "
+            f"{icp_s:.4f} s per batch of {n}, nn1 launches {launches}, "
+            f"icp_cuda launches {icp_launches}, the "
             f"1-NN {launches} x {nn1_ms:.4f} ms = {100 * share:.1f}% of it; "
             f"summary {json.dumps(summ)}")
         del idx
-    return dict(launches=launches, ms=ms, peak_gib=peak, dump_s=dump_s,
-                icp_s=icp_s, nn1_share=share, nn1_err=err)
+    return dict(launches=launches, icp_launches=icp_launches, ms=ms,
+                peak_gib=peak, dump_s=dump_s, icp_s=icp_s, nn1_share=share,
+                nn1_err=err)
 
 
 def pnp_profile(torch, pnp_args, W_fine: int):
@@ -3931,6 +4121,7 @@ def main() -> int:
         par = parallel_phase(torch)
 
     lm_src = "deepi2p_tpu_torch/csrc/frustum_lm.cu"
+    icp_row = nn1_row.pop("icp")
     kernels = [
         dict(name="knn", route="cuda", source="deepi2p_tpu_torch/csrc/knn.cu",
              replaces="deepi2p_tpu/ops/knn_pallas.py:60",
@@ -3967,6 +4158,10 @@ def main() -> int:
         name="norm", route="cuda", source="deepi2p_tpu_torch/csrc/norm.cu",
         replaces=None, train_launches_per_step=train["norm_launches_per_step"],
         shapes=norm_row))
+    kernels.append(dict(
+        name="icp", route="cuda", source="deepi2p_tpu_torch/csrc/icp.cu",
+        replaces=None, launches=launches_eval["icp"],
+        depth_launches=depth["icp_launches"], **icp_row))
     log("kernels=" + json.dumps([k["name"] for k in kernels]))
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -87,6 +87,10 @@ SIGNATURES = {
     # eps, decay, train, stream
     "norm_channel_stats": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _D, _D, _I,
                            _P],
+    # src, rt, moved, B, I, N, stream
+    "icp_transform_f32": [_P, _P, _P, _I, _I, _I, _P],
+    # src, tgt4, d2, idx, rt, stats (or null), B, I, N, M, thr, stream
+    "icp_update_f32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
 }
 
 

@@ -16,10 +16,15 @@ walks init groups with ``lax.map``; the math is the same): each iteration
 is one :func:`~deepi2p_tpu_torch.ops.nn1` call over the (pairs x inits)
 query sets -- on the card one launch of the 1-NN kernel, which reads each
 pair's pseudo cloud for all of that pair's inits -- then a batched
-weighted Kabsch with ``torch.linalg.svd``.  The 3x3 products and the
-Kabsch covariance are written as elementwise sums, so they stay f32
-whatever the TF32 settings (the JAX package pins HIGHEST precision).
-Inits come from a ``torch.Generator``, not ``jax.random``.
+weighted Kabsch.  :func:`_icp_solve` sends CUDA tensors to
+:func:`_icp_solve_cuda` (``icp_cuda``: a transform launch and an update
+launch an iteration, the update summing each set's inlier moments and
+solving its 3x3 Kabsch in float64; no host sync) and CPU tensors to
+:func:`_icp_solve_plain`, whose Kabsch is
+``torch.linalg.svd``; there the 3x3 products and the Kabsch covariance
+are written as elementwise sums, so they stay f32 whatever the TF32
+settings (the JAX package pins HIGHEST precision).  Inits come from a
+``torch.Generator``, not ``jax.random``.
 """
 from __future__ import annotations
 
@@ -32,6 +37,7 @@ import torch
 from ..device import resolve_device
 from ..ops.knn import nn1
 from ..utils.profiling import span
+from . import icp_cuda
 
 
 class ICPResult(NamedTuple):
@@ -115,7 +121,26 @@ def _icp_solve(source, target, P_inits, thr_sched, threshold: float):
 
     source (B, N, 3), target (B, M, 3), P_inits (B, I, 4, 4) ->
     (P (B, I, 4, 4), fitness (B, I)).  One :func:`nn1` call per iteration
-    over the B*I query sets, then one batched Kabsch."""
+    over the B*I query sets, then one batched Kabsch: on the card
+    :func:`_icp_solve_cuda`, elsewhere :func:`_icp_solve_plain`."""
+    if source.device.type == "cuda":
+        return _icp_solve_cuda(source, target, P_inits, thr_sched,
+                               threshold)
+    return _icp_solve_plain(source, target, P_inits, thr_sched, threshold)
+
+
+def _pose(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Poses (..., 4, 4) float32 from R (..., 3, 3) and t (..., 3)."""
+    P = torch.zeros(*R.shape[:-2], 4, 4, dtype=torch.float32,
+                    device=R.device)
+    P[..., :3, :3] = R
+    P[..., :3, 3] = t
+    P[..., 3, 3] = 1.0
+    return P
+
+
+def _icp_solve_plain(source, target, P_inits, thr_sched, threshold: float):
+    """:func:`_icp_solve` in PyTorch ops, on any device (the CPU's path)."""
     B, I = P_inits.shape[:2]
     N = source.shape[1]
     src = source[:, None]                                  # (B, 1, N, 3)
@@ -141,10 +166,37 @@ def _icp_solve(source, target, P_inits, thr_sched, threshold: float):
     with span("icp.fitness"):
         d2m, _ = nearest(R, t)
         fitness = torch.mean((d2m < threshold ** 2).to(torch.float32), dim=-1)
-        P = torch.zeros(B, I, 4, 4, dtype=torch.float32, device=source.device)
-        P[..., :3, :3] = R
-        P[..., :3, 3] = t
-        P[..., 3, 3] = 1.0
+        P = _pose(R, t)
+    return P, fitness
+
+
+def _icp_solve_cuda(source, target, P_inits, thr_sched, threshold: float):
+    """:func:`_icp_solve` on the card, with no host sync: per iteration
+    ``icp_cuda.transform`` into one reused buffer, the 1-NN, and
+    ``icp_cuda.update`` (inlier moments and a float64 Kabsch per set,
+    poses updated in place), 2 launches of ``icp_cuda`` besides the
+    1-NN's; the fitness pass's transform is one more."""
+    B, I = P_inits.shape[:2]
+    N = source.shape[1]
+    src, tgt = source.contiguous(), target.contiguous()
+    rt = icp_cuda.pose_rows(P_inits[..., :3, :3], P_inits[..., :3, 3])
+    tgt4 = icp_cuda.pad_rows(tgt)
+    moved = torch.empty(B * I, N, 3, dtype=torch.float32,
+                        device=source.device)
+
+    def nearest():
+        with span("icp.nn1"):
+            return nn1(icp_cuda.transform(src, rt, moved), tgt)
+
+    for thr in thr_sched.tolist():
+        d2, nn = nearest()
+        with span("icp.update"):
+            icp_cuda.update(src, tgt4, d2, nn, rt, thr)
+    with span("icp.fitness"):
+        d2, _ = nearest()
+        fitness = torch.mean((d2 < threshold ** 2).to(torch.float32),
+                             dim=-1).reshape(B, I)
+        P = _pose(rt[:, :9].reshape(B, I, 3, 3), rt[:, 9:].reshape(B, I, 3))
     return P, fitness
 
 

@@ -17,7 +17,7 @@ REPO = Path(__file__).resolve().parents[1]
 def test_one_nvcc_command_for_all_sources():
     srcs = _build.sources()
     names = {p.name for p in srcs}
-    assert {"knn.cu", "frustum_lm.cu", "nn1.cu"} <= names
+    assert {"knn.cu", "frustum_lm.cu", "nn1.cu", "norm.cu", "icp.cu"} <= names
     assert names == {p.name for p in _build.SRC_DIR.glob("*.cu")}
     out = _build.library_path(srcs)
     # one compile command per source, started together, then one link
